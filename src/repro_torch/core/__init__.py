@@ -1,0 +1,9 @@
+"""The paper's contribution as far as the fabric simulator consumes it:
+per-phase instrumentation records and the bounded adaptive pacing of
+early-arriving ranks (paper §4.3-§5.3). The coordination agent and the
+failure-mode diagnostics arrive with the training path."""
+from repro_torch.core.instrumentation import (CollectiveTrace,  # noqa: F401
+                                              IterationRecord, LocalityInfo,
+                                              PhaseRecorder, summarize)
+from repro_torch.core.pacing import (PacingBank,                # noqa: F401
+                                     PacingController, PacingDecision)

@@ -49,6 +49,8 @@ from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
+from repro_torch._device import resolve_device  # noqa: F401
+
 
 class BackendError(RuntimeError):
     """A kernel/scenario was requested on a backend that cannot run it
@@ -146,27 +148,6 @@ CUDA_KERNELS: Tuple[str, ...] = (
 
 _REGISTRY: Dict[Tuple[str, KernelType], Callable] = {}
 _LOADED: set = set()
-
-
-def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
-    """The device an entry point runs on. ``None`` means the card and
-    raises when there is none — the CPU is used only when asked for by
-    name, never as a stand-in."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "device=None means 'cuda', and no CUDA device is available; "
-                "pass device='cpu' explicitly to run on the CPU")
-        return torch.device("cuda", torch.cuda.current_device())
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device={str(device)!r} requested and no CUDA device is "
-                f"available; pass device='cpu' explicitly to run on the CPU")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 def resolve_dtype(dtype: Optional[torch.dtype]) -> torch.dtype:

@@ -23,11 +23,11 @@ plain PyTorch versions in
 :mod:`repro_torch.fabric.backend.torch_kernels` and to the Python loops in
 :mod:`repro_torch.fabric.congestion`.
 
-Build and binding: ``nvcc`` compiles the source into a shared library with
-a plain C interface at first use, keyed by a hash of the source and the
-flags, under ``build/repro_torch/`` at the repository root; ``ctypes``
-loads it. A failed build raises
-with the compiler's output.
+Build and binding: :mod:`repro_torch._nvcc` compiles the source into a
+shared library with a plain C interface at first use, keyed by a hash of
+the source and the flags, under ``build/repro_torch/`` at the repository
+root; ``ctypes`` loads it. A failed build raises with the compiler's
+output.
 
 Contract of every wrapper here: CUDA tensors only (``backend="torch"`` is
 how the CPU is asked for), ``torch.float32`` or ``torch.float64``; the
@@ -40,16 +40,13 @@ counts where it launches its kernel, and nowhere else.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import _nvcc
 from repro_torch.fabric.backend import KernelType, register_kernel
 from repro_torch.fabric.backend.torch_kernels import (check_demands_launch,
                                                       priority_classes)
@@ -82,59 +79,14 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 
 
-def build_dir() -> Path:
-    return Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-
-
-def _find_nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    # torch looks at $CUDA_HOME, $CUDA_PATH and the toolkit's usual place
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
-        return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    raise RuntimeError(
-        "cannot build the fabric CUDA kernels: no nvcc on PATH or under "
-        "torch's CUDA_HOME")
-
-
-def library_path() -> Path:
-    """Where the built library for the current source and flags lives."""
-    h = hashlib.sha256()
-    h.update(SOURCE.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return build_dir() / f"libfabric_kernels_{h.hexdigest()[:16]}.so"
-
-
-def build_library(verbose: bool = False) -> Path:
-    """Compile ``fabric_kernels.cu`` unless the library for this source
-    is already built. Raises ``RuntimeError`` carrying nvcc's output when
-    the build fails."""
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_find_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {SOURCE.name}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr.strip())
-    os.replace(tmp, out)
-    return out
+# after a build, its ptxas report is in LIBRARY.ptxas_log
+LIBRARY = _nvcc.NvccLibrary(SOURCE, NVCC_FLAGS, "fabric_kernels")
 
 
 def _library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build_library()))
+        lib = LIBRARY.load()
         p, i, ll, dbl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_double)
         for sfx in ("f32", "f64"):

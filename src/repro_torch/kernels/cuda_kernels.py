@@ -1,0 +1,101 @@
+"""Build, binding and launch counts of the model substrate's CUDA kernels.
+
+``csrc/model_kernels.cu`` holds K4 (flash-attention forward) and K5
+(RMSNorm). :mod:`repro_torch._nvcc` compiles it at first use into
+``build/repro_torch/`` and ``ctypes`` loads it; a failed build raises with
+the compiler's output. The functions here launch a kernel on
+``torch.cuda.current_stream()`` with pointers the caller has checked
+(:mod:`repro_torch.kernels.flash_attention`,
+:mod:`repro_torch.kernels.rmsnorm` hold the checks and the plain
+versions), raise when ``cudaGetLastError()`` is not 0 after the launch,
+and add one to the kernel's launch count, which is counted nowhere else.
+Nothing synchronises.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import _nvcc
+
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "model_kernels.cu"
+NVCC_FLAGS: Tuple[str, ...] = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC")
+# after a build, its ptxas report is in LIBRARY.ptxas_log
+LIBRARY = _nvcc.NvccLibrary(SOURCE, NVCC_FLAGS, "model_kernels")
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64, 128)
+
+_LAUNCHES: Dict[str, int] = {"flash_attention": 0, "rmsnorm": 0}
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per kernel since the last reset (a copy)."""
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for k in _LAUNCHES:
+        _LAUNCHES[k] = 0
+
+
+def _library() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = LIBRARY.load()
+        p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_float)
+        lib.model_flash_attention_fwd.argtypes = \
+            [p, p, p, p, i, i, i, i, i, i, i] + [ll] * 9 + [f, i, i, i, p]
+        lib.model_flash_attention_fwd.restype = i
+        lib.model_rmsnorm_fwd.argtypes = [p, p, p, i, i, ll, i, f, p]
+        lib.model_rmsnorm_fwd.restype = i
+        lib.model_error_string.argtypes = [i]
+        lib.model_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _check(name: str, lib, code: int) -> None:
+    if code != 0:
+        raise RuntimeError(
+            f"cuda kernel {name!r} failed to launch: "
+            f"{lib.model_error_string(code).decode()} (cudaError {code})")
+    _LAUNCHES[name] += 1
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, *, scale: float, causal: bool,
+                        window: int, q_offset: int) -> None:
+    """Launch K4 writing ``out`` (B, Sq, H, D), contiguous."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    lib = _library()
+    strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3]]
+    with torch.cuda.device(q.device):
+        code = lib.model_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            DTYPE_CODES[q.dtype], B, Sq, Sk, H, KV, D, *strides,
+            float(scale), int(bool(causal)), int(window), int(q_offset),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _check("flash_attention", lib, code)
+
+
+def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, out: torch.Tensor,
+                eps: float) -> None:
+    """Launch K5 over the rows of a contiguous ``x`` (..., D)."""
+    D = x.shape[-1]
+    rows = x.numel() // D
+    lib = _library()
+    with torch.cuda.device(x.device):
+        code = lib.model_rmsnorm_fwd(
+            x.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            DTYPE_CODES[x.dtype], DTYPE_CODES[scale.dtype], rows, D,
+            float(eps), torch.cuda.current_stream(x.device).cuda_stream)
+    _check("rmsnorm", lib, code)

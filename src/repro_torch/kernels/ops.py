@@ -1,0 +1,87 @@
+"""Public kernel ops: dispatch between the hand-written CUDA kernels and
+their plain PyTorch versions.
+
+The counterpart of ``repro.kernels.ops``, forward only. The backend is an
+argument of every op, with the fabric backends' names:
+
+  * ``"cuda"`` (the default) -- the hand-written kernel, on CUDA tensors
+    only: a CPU tensor raises, and nothing stands in for a missing card,
+    a failed build or a refused launch;
+  * ``"torch"`` -- the plain PyTorch version, on any device.
+
+Single-token decode attention and attention with a dynamic ``kv_len`` are
+not Pallas kernels in the reference either (it sends them to XLA): they are
+torch ops on both backends. Gradients (``custom_vjp`` there,
+``torch.autograd.Function`` here) come with the training slice.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import chunked, ref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
+
+BACKENDS = ("cuda", "torch")
+
+
+def check_backend(backend: str, x: torch.Tensor) -> None:
+    """Raise unless ``backend`` is known and can run on ``x``'s device."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+    if backend == "cuda" and x.device.type != "cuda":
+        raise ValueError(
+            f"backend='cuda' runs the hand-written kernels on CUDA tensors; "
+            f"got a tensor on {x.device}. backend='torch' is the plain "
+            f"version and runs on the CPU")
+
+
+def attention(
+    q: torch.Tensor,               # (B, Sq, H, Dh)
+    k: torch.Tensor,               # (B, Sk, KV, Dh)
+    v: torch.Tensor,               # (B, Sk, KV, Dv)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_offset: int = 0,
+    kv_len: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    backend: str = "cuda",
+) -> torch.Tensor:
+    """Attention (causal / GQA / SWA): K4 on ``"cuda"``; the plain version
+    on ``"torch"`` and, on both, whenever a dynamic ``kv_len`` is given
+    (the reference's kernel takes a static kv length only)."""
+    check_backend(backend, q)
+    if backend == "torch" or kv_len is not None:
+        return ref.attention(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset, kv_len=kv_len, scale=scale)
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           q_offset=q_offset, scale=scale)
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    *,
+    kv_len: torch.Tensor,
+    window: int = 0,
+    scale: Optional[float] = None,
+    backend: str = "cuda",
+) -> torch.Tensor:
+    """Single-token decode over a KV cache: torch ops on both backends, as
+    the reference keeps it on XLA (a one-token GEMV)."""
+    check_backend(backend, q)
+    return chunked.decode_attention(q, k_cache, v_cache, kv_len=kv_len,
+                                    window=window, scale=scale)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5, *,
+            backend: str = "cuda") -> torch.Tensor:
+    """RMSNorm: K5 on ``"cuda"``, the plain version on ``"torch"``."""
+    check_backend(backend, x)
+    if backend == "torch":
+        return ref.rmsnorm(x, scale, eps)
+    return rmsnorm_kernel(x, scale, eps)

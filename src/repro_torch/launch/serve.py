@@ -1,0 +1,134 @@
+"""Serving: prefill + batched greedy decode with a KV cache.
+
+The counterpart of ``repro.launch.serve``. A prefill fills the cache for a
+request batch, then the decode step runs one token per iteration for the
+whole batch, writing the cache in place (the reference donates it to the
+jitted step). The coordination agent wraps each decode dispatch as it
+wraps a training step; the dispatch ends in ``torch.cuda.synchronize()``
+on the card, so the agent times the step and not its enqueue.
+
+Devices and backends: ``device=None`` is the card and raises
+``RuntimeError`` without one; ``backend="cuda"`` (the default) runs the
+hand-written kernels and refuses the CPU. The CPU is used only when asked
+for by name: ``device="cpu", backend="torch"``.
+
+Run it as ``PYTHONPATH=src python -m repro_torch.launch.serve`` (smoke
+configuration, seeded random weights).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs import PacingConfig, get_model_config
+from repro_torch.core import CoordinationAgent
+from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.models.api import Model, build_model
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(
+    *,
+    arch: str,
+    prompt_tokens,                     # (B, S_prompt) integer tensor/array
+    max_new_tokens: int = 16,
+    smoke: bool = True,
+    model: Optional[Model] = None,
+    seed: int = 0,
+    pacing: Optional[PacingConfig] = None,
+    device=None,
+    backend: str = "cuda",
+    stats: Optional[Dict[str, Any]] = None,
+) -> Tuple[torch.Tensor, Dict[str, float]]:
+    """Greedy decode. Returns (tokens (B, S_prompt+new), agent summary).
+
+    ``model`` stands for the reference's ``params``: a ``Model`` holding
+    weights, whose configuration is then the one served (it must be
+    ``arch``'s) and whose device is used; without it the ``arch`` model is
+    built on ``device`` and initialised from ``seed``. ``stats``, when
+    given, receives ``prefill_s`` and ``decode_s`` (one entry per step),
+    host clock around synchronised work."""
+    cfg = model.cfg if model is not None else \
+        get_model_config(arch, smoke=smoke)
+    if cfg.name != get_model_config(arch).name:
+        raise ValueError(f"model is {cfg.name!r}, arch is {arch!r}")
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            "encoder-decoder serving is not ported yet (ROADMAP.md, Queue 1)")
+    if model is None:
+        model = build_model(cfg, device=device)
+        model.init(seed)
+    elif device is not None and torch.device(device) != model.device:
+        raise ValueError(f"model is on {model.device}, device={device!r}")
+    dev = model.device
+    agent = CoordinationAgent(pacing or PacingConfig())
+
+    if not isinstance(prompt_tokens, torch.Tensor):
+        prompt_tokens = torch.from_numpy(np.asarray(prompt_tokens))
+    tokens = prompt_tokens.to(device=dev, dtype=torch.long)
+    B, S = tokens.shape
+    max_len = S + max_new_tokens
+    prefill = make_prefill_step(model, max_len=max_len, backend=backend)
+    decode = make_decode_step(model, backend=backend)
+    step_s = []
+
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        logits, cache = prefill({"tokens": tokens})
+        _sync(dev)
+        prefill_s = time.perf_counter() - t0
+        out = [tokens]
+        tok = torch.argmax(logits, -1)
+        for i in range(max_new_tokens):
+            out.append(tok[:, None])
+            kv_len = torch.full((B,), S + i + 1, dtype=torch.int32,
+                                device=dev)
+
+            def dispatch():
+                nonlocal cache
+                t = time.perf_counter()
+                lg, cache = decode(tok, S + i, kv_len, cache)
+                _sync(dev)
+                step_s.append(time.perf_counter() - t)
+                return lg
+
+            lg = agent.timed_step(dispatch)
+            agent.end_iteration(i)
+            tok = torch.argmax(lg, -1)
+    if stats is not None:
+        stats.update(prefill_s=prefill_s, decode_s=step_s)
+    return torch.cat(out, dim=1), agent.summary()
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="qwen2-7b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new-tokens", type=int, default=16)
+    ap.add_argument("--device", default=None,
+                    help="default: the card (raises without one)")
+    ap.add_argument("--backend", default="cuda", choices=("cuda", "torch"))
+    args = ap.parse_args()
+    cfg = get_model_config(args.arch, smoke=True)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           size=(args.batch, args.prompt_len))
+    toks, summary = generate(arch=args.arch, prompt_tokens=prompts,
+                             max_new_tokens=args.max_new_tokens,
+                             device=args.device, backend=args.backend)
+    print("generated shape:", tuple(toks.shape))
+    print(json.dumps(summary, indent=1, default=str))
+
+
+if __name__ == "__main__":
+    main()

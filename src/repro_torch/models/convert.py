@@ -1,0 +1,84 @@
+"""Load the JAX package's parameter tree into the port's ``Model``.
+
+``params_from_jax(tree, cfg, device=...)`` takes the tree as numpy arrays
+(``jax.tree.map(np.asarray, params)`` on the JAX side; this module imports
+no JAX) and returns a ``Model`` holding the same values. bfloat16 leaves
+arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses, so
+every leaf goes through float32 (exact for bfloat16) and is cast to the
+configuration's ``param_dtype`` on the device. The body slots' leading
+``(n_periods, ...)`` axis is unstacked into per-layer blocks. Every leaf
+lands exactly once: a leaf with no place in the model, a model parameter
+no leaf filled, or a shape that differs raises ``ValueError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as tfm
+from repro_torch.models.api import Model
+
+
+def _leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+def _targets(tree: Dict[str, Any], cfg: ModelConfig
+             ) -> Iterator[Tuple[str, str, Any]]:
+    """(model parameter name, tree path, array) for every leaf, with the
+    stacked body leaves split into one array per layer."""
+    prefix, kinds, n_periods = tfm.layer_layout(cfg)
+    P = len(kinds)
+    for path, leaf in _leaves(tree):
+        parts = path.strip("/").split("/")
+        if parts[0] == "prefix":
+            i, rest = int(parts[1]), ".".join(parts[2:])
+            yield f"blocks.{i}.{rest}", path, np.asarray(leaf)
+        elif parts[0] == "body":
+            j, rest = int(parts[1]), ".".join(parts[2:])
+            arr = np.asarray(leaf)
+            if arr.shape[0] != n_periods:
+                raise ValueError(f"{path}: leading axis {arr.shape[0]}, "
+                                 f"expected {n_periods} periods")
+            for t in range(n_periods):
+                yield (f"blocks.{prefix + t * P + j}.{rest}",
+                       f"{path}[{t}]", arr[t])
+        else:
+            yield ".".join(parts), path, np.asarray(leaf)
+
+
+def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
+                    device=None) -> Model:
+    model = Model(cfg, device=device)
+    # allocate by drawing (any seed): the values are all overwritten below
+    params = model.init(0)
+    own = dict(params.named_parameters())
+    filled = set()
+    for name, path, arr in _targets(tree, cfg):
+        if name not in own:
+            raise ValueError(f"leaf {path} has no parameter {name!r} in the "
+                             f"port's model")
+        if name in filled:
+            raise ValueError(f"parameter {name!r} filled twice ({path})")
+        dst = own[name]
+        if tuple(arr.shape) != tuple(dst.shape):
+            raise ValueError(f"{path}: shape {tuple(arr.shape)}, the port's "
+                             f"{name} is {tuple(dst.shape)}")
+        src = torch.from_numpy(np.array(arr, dtype=np.float32))
+        with torch.no_grad():
+            dst.copy_(src.to(device=dst.device, dtype=dst.dtype))
+        filled.add(name)
+    left = sorted(set(own) - filled)
+    if left:
+        raise ValueError(f"no leaf of the tree filled {left}")
+    return model

@@ -1,0 +1,337 @@
+"""Model assembly: the decoder-only transformer, serving subset.
+
+The counterpart of ``repro.models.transformer`` for stacks whose every
+layer is GQA attention + dense MLP with RMSNorm and RoPE (``qwen2-7b``,
+``stablelm-12b``, ``starcoder2-15b``). The reference stacks each period
+slot's parameters ``(n_periods, ...)`` and runs the depth as one
+``lax.scan``; here each layer is a block in an ``nn.ModuleList`` walked by
+a Python loop, and the logical-sharding annotations drop out (one card,
+no mesh). Layers this slice lacks -- MLA, MoE, the RWKV and Mamba mixers,
+cross attention, M-RoPE, learned positions, the vision frontend, MTP --
+are refused when the model is built (:func:`check_supported`).
+
+Modes:
+  * ``train``   -- full causal pass, logits, no cache (losses come with
+                   the training slice).
+  * ``prefill`` -- causal pass that also fills the decode cache.
+  * ``decode``  -- one new token against the cache (S == 1).
+
+The cache is a list with one ``{"attn": {"k", "v"}}`` dict per layer,
+written in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import attention as attn
+from repro_torch.models import mlp as mlpm
+from repro_torch.models.params import (dense_init, embed_init, ones, param)
+from repro_torch.models.rope import positions_for
+
+Cache = List[Dict[str, Any]]
+
+
+# ---------------------------------------------------------------------------
+# layer-kind layout
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerKind:
+    mixer: str          # "gqa" | "mla" | "rwkv" | "mamba"
+    mlp: str            # "dense" | "moe" | "cmix"
+    cross: bool = False # decoder layer with cross attention (enc-dec)
+
+
+def kind_for_layer(cfg: ModelConfig, i: int, *, cross: bool = False
+                   ) -> LayerKind:
+    if cfg.is_attention_layer(i):
+        mixer = "mla" if cfg.attn_type == "mla" else "gqa"
+    else:
+        mixer = "rwkv" if (cfg.ssm and cfg.ssm.kind == "rwkv6") else "mamba"
+    if cfg.ssm and cfg.ssm.kind == "rwkv6":
+        ml = "cmix"
+    elif cfg.is_moe_layer(i):
+        ml = "moe"
+    else:
+        ml = "dense"
+    return LayerKind(mixer, ml, cross)
+
+
+def _try_layout(cfg: ModelConfig, prefix: int, P: int
+                ) -> Optional[List[LayerKind]]:
+    """Kinds for one period if layers [prefix:] repeat with period P."""
+    body = cfg.num_layers - prefix
+    if body <= 0 or body % P != 0:
+        return None
+    kinds = [kind_for_layer(cfg, prefix + j, cross=cfg.is_encoder_decoder)
+             for j in range(P)]
+    for j in range(body):
+        if kind_for_layer(cfg, prefix + j,
+                          cross=cfg.is_encoder_decoder) != kinds[j % P]:
+            return None
+    return kinds
+
+
+def layer_layout(cfg: ModelConfig) -> Tuple[int, List[LayerKind], int]:
+    """Returns (prefix_len, period_kinds, n_periods) of the reference's
+    parameter tree: layer ``prefix + t * P + j`` is period ``t`` of body
+    slot ``j`` (:mod:`repro_torch.models.convert` reads it this way)."""
+    P = 1
+    if cfg.attn_period > 0:
+        P = math.lcm(P, cfg.attn_period)
+    if cfg.moe is not None and cfg.moe.every_k > 1:
+        P = math.lcm(P, cfg.moe.every_k)
+    for prefix in (0, cfg.moe.first_k_dense if cfg.moe else 0):
+        kinds = _try_layout(cfg, prefix, P)
+        if kinds is not None:
+            return prefix, kinds, (cfg.num_layers - prefix) // P
+    # degenerate: everything in one unrolled period
+    kinds = _try_layout(cfg, 0, cfg.num_layers)
+    if kinds is None:
+        raise ValueError(f"{cfg.name}: no layer layout")
+    return 0, kinds, 1
+
+
+SUPPORTED_KIND = LayerKind("gqa", "dense", False)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a configuration that needs layers
+    this slice of the port does not have."""
+    missing = []
+    if cfg.is_encoder_decoder:
+        missing.append("encoder-decoder stacks with cross attention")
+    if cfg.frontend != "none":
+        missing.append(f"the {cfg.frontend} frontend")
+    if cfg.rope == "mrope":
+        missing.append("M-RoPE")
+    elif cfg.rope == "none" and cfg.ssm is None:
+        missing.append("learned absolute positions (pos_embed)")
+    if cfg.mtp_depth > 0:
+        missing.append("multi-token prediction")
+    kinds = {kind_for_layer(cfg, i) for i in range(cfg.num_layers)}
+    for k in sorted(kinds - {SUPPORTED_KIND}, key=str):
+        missing.append(f"{k.mixer} mixer + {k.mlp} mlp layers")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported yet; this slice "
+            f"of the port serves GQA + dense-MLP decoders (ROADMAP.md, "
+            f"Queue 1, lists what comes next)")
+
+
+# ---------------------------------------------------------------------------
+# single block (norm -> mixer -> +res -> norm -> mlp -> +res)
+# ---------------------------------------------------------------------------
+
+
+def _norm_init(cfg: ModelConfig, *, device=None) -> nn.ParameterDict:
+    return nn.ParameterDict({"scale": param(ones(
+        (cfg.d_model,), getattr(torch, cfg.param_dtype), device))})
+
+
+def _norm(p: nn.ParameterDict, x: torch.Tensor, eps: float, *,
+          backend: str) -> torch.Tensor:
+    return ops.rmsnorm(x, p["scale"], eps, backend=backend)
+
+
+def block_init(gen: torch.Generator, cfg: ModelConfig, kind: LayerKind, *,
+               device=None) -> nn.ModuleDict:
+    if kind != SUPPORTED_KIND:
+        raise NotImplementedError(f"{kind} layers are not ported yet")
+    d_ff = cfg.moe.d_ff_dense if (cfg.moe and cfg.moe.d_ff_dense) \
+        else cfg.d_ff
+    return nn.ModuleDict({
+        "norm1": _norm_init(cfg, device=device),
+        "norm2": _norm_init(cfg, device=device),
+        "mixer": attn.gqa_init(gen, cfg, device=device),
+        "mlp": mlpm.mlp_init(gen, cfg, d_ff=d_ff, device=device),
+    })
+
+
+def block_cache(cfg: ModelConfig, kind: LayerKind, batch: int, max_len: int,
+                *, device=None) -> Dict[str, Any]:
+    """Decode cache for one block (zeros; filled by prefill)."""
+    if kind.mixer != "gqa":
+        raise NotImplementedError(f"{kind.mixer} caches are not ported yet")
+    return {"attn": attn.gqa_init_cache(cfg, batch, max_len, device=device)}
+
+
+def block_apply(
+    p: nn.ModuleDict,
+    x: torch.Tensor,                # (B, S, D)
+    *,
+    cfg: ModelConfig,
+    positions: torch.Tensor,
+    pos0: Union[int, torch.Tensor],
+    mode: str,
+    cache: Optional[Dict[str, Any]],
+    kv_len: Optional[torch.Tensor],
+    causal: bool = True,
+    backend: str = "cuda",
+) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+    """Returns (x_out, new_cache)."""
+    eps = cfg.norm_eps
+    h = _norm(p["norm1"], x, eps, backend=backend)
+    out, nc = attn.gqa_apply(p["mixer"], h, cfg=cfg, positions=positions,
+                             mode=mode, cache=cache["attn"] if cache else None,
+                             kv_len=kv_len, pos0=pos0, causal=causal,
+                             backend=backend)
+    x = x + out
+    h2 = _norm(p["norm2"], x, eps, backend=backend)
+    x = x + mlpm.mlp_apply(p["mlp"], h2, cfg=cfg)
+    return x, ({"attn": nc} if nc is not None else None)
+
+
+# ---------------------------------------------------------------------------
+# full-model parameters and cache
+# ---------------------------------------------------------------------------
+
+
+class Params(nn.Module):
+    """The decoder's parameters: ``embed``, ``blocks`` (one per layer),
+    ``final_norm`` and ``lm_head`` (absent with tied embeddings)."""
+
+    def __init__(self, embed: torch.Tensor, blocks: List[nn.ModuleDict],
+                 final_norm: nn.ParameterDict,
+                 lm_head: Optional[torch.Tensor]):
+        super().__init__()
+        self.embed = param(embed)
+        self.blocks = nn.ModuleList(blocks)
+        self.final_norm = final_norm
+        self.lm_head = param(lm_head) if lm_head is not None else None
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator, *, device=None
+                ) -> Params:
+    check_supported(cfg)
+    dt = getattr(torch, cfg.param_dtype)
+    Vp = cfg.padded_vocab()
+    D = cfg.d_model
+    embed = embed_init(gen, Vp, D, dtype=dt, device=device)
+    blocks = [block_init(gen, cfg, kind_for_layer(cfg, i), device=device)
+              for i in range(cfg.num_layers)]
+    final_norm = _norm_init(cfg, device=device)
+    lm_head = None
+    if not cfg.tie_embeddings:
+        lm_head = dense_init(gen, D, Vp, std=1.0 / math.sqrt(D), dtype=dt,
+                             device=device)
+    return Params(embed, blocks, final_norm, lm_head)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None
+               ) -> Cache:
+    return [block_cache(cfg, kind_for_layer(cfg, i), batch, max_len,
+                        device=device)
+            for i in range(cfg.num_layers)]
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def _embed(p: Params, cfg: ModelConfig, tokens: torch.Tensor
+           ) -> torch.Tensor:
+    return p.embed[tokens].to(getattr(torch, cfg.dtype))
+
+
+def _run_stack(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
+               positions: torch.Tensor, pos0, mode: str,
+               cache: Optional[Cache], kv_len: Optional[torch.Tensor],
+               backend: str) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """The layers in order. Returns (x, new_cache)."""
+    new_cache = []
+    for i, blk in enumerate(p.blocks):
+        x, nc = block_apply(blk, x, cfg=cfg, positions=positions, pos0=pos0,
+                            mode=mode, cache=cache[i] if cache else None,
+                            kv_len=kv_len, backend=backend)
+        new_cache.append(nc)
+    return x, (new_cache if mode in ("prefill", "decode") else None)
+
+
+@dataclasses.dataclass
+class Output:
+    logits: torch.Tensor                   # (B, S, Vp)
+    cache: Optional[Cache] = None
+
+
+def _head(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    head = p.lm_head if p.lm_head is not None else p.embed.T
+    return x @ head
+
+
+def forward(
+    p: Params,
+    batch: Dict[str, torch.Tensor],
+    *,
+    cfg: ModelConfig,
+    mode: str = "train",
+    cache: Optional[Cache] = None,
+    pos0: Optional[Union[int, torch.Tensor]] = None,
+    backend: str = "cuda",
+) -> Output:
+    """batch keys: tokens (B,S); optional positions (B,S), kv_len (B,).
+    ``pos0`` is the position of ``tokens[:, 0]`` for the cache write
+    (read from ``positions`` when not given, 0 without them)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    positions = batch.get("positions")
+    if positions is None:
+        positions = positions_for(B, S, device=tokens.device)
+        pos0 = 0 if pos0 is None else pos0
+    elif pos0 is None:
+        pos0 = int(positions[0, 0])
+    x = _embed(p, cfg, tokens)
+    x, new_cache = _run_stack(p, x, cfg=cfg, positions=positions, pos0=pos0,
+                              mode=mode, cache=cache,
+                              kv_len=batch.get("kv_len"), backend=backend)
+    x = _norm(p.final_norm, x, cfg.norm_eps, backend=backend)
+    return Output(logits=_head(p, cfg, x), cache=new_cache)
+
+
+# ---------------------------------------------------------------------------
+# serving entry points
+# ---------------------------------------------------------------------------
+
+
+def prefill(p: Params, batch: Dict[str, torch.Tensor], *, cfg: ModelConfig,
+            max_len: int, backend: str = "cuda"
+            ) -> Tuple[torch.Tensor, Cache]:
+    """Run the prompt, return (last-token logits (B,Vp), filled cache).
+    The logits of every position are computed, as in the reference; only
+    a copy of the last position's outlives the call."""
+    B, S = batch["tokens"].shape
+    cache = init_cache(cfg, B, max_len, device=batch["tokens"].device)
+    out = forward(p, batch, cfg=cfg, mode="prefill", cache=cache,
+                  backend=backend)
+    return out.logits[:, -1].clone(), out.cache
+
+
+def decode_step(
+    p: Params,
+    token: torch.Tensor,            # (B,) the newest token
+    pos: Union[int, torch.Tensor],  # its absolute position
+    cache: Cache,
+    *,
+    cfg: ModelConfig,
+    kv_len: Optional[torch.Tensor] = None,
+    backend: str = "cuda",
+) -> Tuple[torch.Tensor, Cache]:
+    """One decode step: logits for the next token + the updated cache
+    (the same list, written in place)."""
+    B = token.shape[0]
+    batch = {"tokens": token[:, None],
+             "positions": positions_for(B, 1, pos, device=token.device)}
+    if kv_len is not None:
+        batch["kv_len"] = kv_len
+    out = forward(p, batch, cfg=cfg, mode="decode", cache=cache, pos0=pos,
+                  backend=backend)
+    return out.logits[:, 0], out.cache

@@ -112,3 +112,115 @@ def test_torch_cuda_bare_run_launches_the_kernels_on_the_card(card):
     (_, again), = ScenarioGrid(scn, {"base_seed": [0]}).run()
     assert again.series("a") == res.series("a")
     assert CK.launch_counts()["segment_overlap"] == 2 * 2 * 10
+
+
+# -- the model substrate's kernels (K4 flash attention, K5 RMSNorm) ---------
+#
+# Held to their plain versions in kernels/ref.py: attention 2e-5 in float32
+# and 2e-2 in bfloat16 (the JAX package's own tolerances); RMSNorm within
+# 2 ulp relative in float32 and 1 ulp in bfloat16 (both round the float64
+# mean of squares once to float32 and then make the same correctly rounded
+# operations, so they are expected to agree bit for bit).
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # (B, Sq, Sk, H, KV, D, causal, window, q_offset)
+    (2, 100, 100, 4, 2, 32, True, 0, 0),
+    (1, 64, 200, 7, 1, 64, True, 0, 136),
+    (1, 130, 130, 2, 2, 128, True, 48, 0),
+    (2, 70, 90, 4, 4, 64, False, 0, 0),
+], ids=str)
+def test_torch_cuda_flash_attention_matches_plain_version(card, dtype, case):
+    from repro_torch.kernels import cuda_kernels as MK
+    from repro_torch.kernels.flash_attention import flash_attention, plain
+    B, Sq, Sk, H, KV, D, causal, window, q_off = case
+    gen = torch.Generator(device=card).manual_seed(sum(case[:6]))
+    q = torch.randn(B, Sq, H, D, generator=gen, device=card).to(dtype)
+    k = torch.randn(B, Sk, KV, D, generator=gen, device=card).to(dtype)
+    v = torch.randn(B, Sk, KV, D, generator=gen, device=card).to(dtype)
+    before = MK.launch_counts()["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, window=window,
+                          q_offset=q_off)
+    torch.cuda.synchronize()
+    assert MK.launch_counts()["flash_attention"] == before + 1
+    want = plain(q, k, v, causal=causal, window=window, q_offset=q_off)
+    t = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=t, atol=t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(33, 3584), (4, 3584), (5, 7, 128),
+                                   (3, 100), (3, 12289)], ids=str)
+def test_torch_cuda_rmsnorm_matches_plain_version(card, dtype, shape):
+    from repro_torch.kernels import cuda_kernels as MK
+    from repro_torch.kernels.rmsnorm import plain, rmsnorm
+    gen = torch.Generator(device=card).manual_seed(shape[-1])
+    x = (3 * torch.randn(shape, generator=gen, device=card)).to(dtype)
+    s = (1 + 0.2 * torch.randn(shape[-1], generator=gen, device=card)
+         ).to(dtype)
+    before = MK.launch_counts()["rmsnorm"]
+    got = rmsnorm(x, s, 1e-5)
+    torch.cuda.synchronize()
+    assert MK.launch_counts()["rmsnorm"] == before + 1
+    want = plain(x, s, 1e-5)
+    ulps = 1 if dtype == torch.bfloat16 else 2
+    bound = ulps * torch.finfo(dtype).eps * want.float().abs()
+    assert bool(((got.float() - want.float()).abs() <= bound).all())
+
+
+def test_torch_cuda_model_wrappers_refuse_what_the_kernels_do_not_take(card):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    q = torch.randn(1, 8, 2, 48, device=card)
+    with pytest.raises(ValueError, match="head dim 48"):
+        flash_attention(q, q, q)
+    q = torch.randn(1, 8, 2, 32, device=card, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or torch.bfloat16"):
+        flash_attention(q, q, q)
+    x = torch.randn(4, 64, device=card).T
+    with pytest.raises(ValueError, match="contiguous"):
+        rmsnorm(x, torch.ones(4, device=card))
+
+
+def test_torch_cuda_smoke_generate_matches_torch_backend(card):
+    """The serving path on the card with the kernels, float32 smoke
+    model: the same greedy tokens as the plain versions."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.kernels import cuda_kernels as MK
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.api import build_model
+    cfg = get_model_config("qwen2-7b", smoke=True).replace(
+        dtype="float32", param_dtype="float32")
+    model = build_model(cfg)
+    model.init(0)
+    prompts = np.random.default_rng(0).integers(0, 512, size=(2, 16))
+    MK.reset_launch_counts()
+    a, _ = generate(arch="qwen2-7b", prompt_tokens=prompts, model=model,
+                    max_new_tokens=6)
+    assert MK.launch_counts() == {"flash_attention": cfg.num_layers,
+                                  "rmsnorm": (2 * cfg.num_layers + 1) * 7}
+    b, _ = generate(arch="qwen2-7b", prompt_tokens=prompts, model=model,
+                    max_new_tokens=6, backend="torch")
+    assert torch.equal(a, b)
+
+
+def test_torch_cuda_smoke_builds_twice_in_one_checkout(card, capsys):
+    """``chip_smoke.build_all`` on libraries that are already built (a
+    second run, or a run after these tests) loads them and still reports
+    their registers."""
+    import importlib.util
+    import json
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    for _ in range(2):
+        smoke.build_all()
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("{")]
+    builds = [ln["model_build"] for ln in lines if "model_build" in ln]
+    assert len(builds) == 2 and builds[1]["cached"]
+    for b in builds:
+        assert b["max_registers"] > 0 and b["spill_bytes"] is not None

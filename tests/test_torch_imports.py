@@ -21,12 +21,33 @@ FORBIDDEN = re.compile(
 def test_torch_port_has_the_expected_files():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for want in ("src/repro_torch/__init__.py",
+                 "src/repro_torch/_nvcc.py",
+                 "src/repro_torch/_device.py",
                  "src/repro_torch/fabric/backend/torch_kernels.py",
                  "src/repro_torch/fabric/backend/cuda_kernels.py",
                  "src/repro_torch/fabric/backend/torch_engine.py",
+                 "src/repro_torch/configs/base.py",
+                 "src/repro_torch/configs/qwen2_7b.py",
+                 "src/repro_torch/core/coordination.py",
+                 "src/repro_torch/kernels/ref.py",
+                 "src/repro_torch/kernels/chunked.py",
+                 "src/repro_torch/kernels/flash_attention.py",
+                 "src/repro_torch/kernels/rmsnorm.py",
+                 "src/repro_torch/kernels/cuda_kernels.py",
+                 "src/repro_torch/kernels/ops.py",
+                 "src/repro_torch/models/params.py",
+                 "src/repro_torch/models/rope.py",
+                 "src/repro_torch/models/attention.py",
+                 "src/repro_torch/models/mlp.py",
+                 "src/repro_torch/models/transformer.py",
+                 "src/repro_torch/models/api.py",
+                 "src/repro_torch/models/convert.py",
+                 "src/repro_torch/launch/steps.py",
+                 "src/repro_torch/launch/serve.py",
                  "chip_smoke.py"):
         assert want in names
-    assert (ROOT / "src/repro_torch/csrc/fabric_kernels.cu").exists()
+    for cu in ("fabric_kernels.cu", "model_kernels.cu"):
+        assert (ROOT / "src/repro_torch/csrc" / cu).exists()
 
 
 @pytest.mark.parametrize(
@@ -46,8 +67,53 @@ def test_torch_port_cuda_source_keeps_its_build_contract():
     for fn in ("fabric_waterfill", "fabric_strict_priority",
                "fabric_segment_overlap"):
         assert f"int {fn}_f32(" in src and f"int {fn}_f64(" in src
-    assert CK.build_dir().relative_to(ROOT).as_posix() == "build/repro_torch"
+    from repro_torch import _nvcc
+    assert _nvcc.build_dir().relative_to(ROOT).as_posix() == \
+        "build/repro_torch"
+    assert CK.LIBRARY.flags == CK.NVCC_FLAGS
+    assert CK.LIBRARY.path().name.startswith("libfabric_kernels_")
     assert "build/" in (ROOT / ".gitignore").read_text().split()
+
+
+def test_torch_nvcc_build_keeps_its_ptxas_report_for_a_cached_library(
+        tmp_path, monkeypatch):
+    """A library built earlier (another process, another run) is loaded
+    without a compile and still has the register report of its build; a
+    failed build raises with the compiler's output."""
+    from repro_torch import _nvcc
+    calls = tmp_path / "calls"
+    fake = tmp_path / "nvcc"
+    fake.write_text(textwrap.dedent(f"""\
+        #!{sys.executable}
+        import sys
+        open({str(calls)!r}, "a").write("x")
+        if "FAIL" in open(sys.argv[-1]).read():
+            print("error: bad source", file=sys.stderr)
+            sys.exit(2)
+        assert sys.argv[sys.argv.index("-Xptxas") + 1] == "-v"
+        open(sys.argv[sys.argv.index("-o") + 1], "wb").write(b"so")
+        print("ptxas info    : Compiling entry function 'k' for 'sm_90a'",
+              file=sys.stderr)
+        print("ptxas info    : Used 40 registers", file=sys.stderr)
+    """))
+    fake.chmod(0o755)
+    monkeypatch.setattr(_nvcc, "find_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_nvcc, "build_dir", lambda: tmp_path / "build")
+    src = tmp_path / "k.cu"
+    src.write_text("__global__ void k() {}\n")
+    first = _nvcc.NvccLibrary(src, ("-O3",), "k")
+    path = first.build()
+    assert path.read_bytes() == b"so" and "Used 40 registers" in \
+        first.ptxas_log
+    assert first.report_path().read_text() == first.ptxas_log
+    again = _nvcc.NvccLibrary(src, ("-O3",), "k")    # as a later run would
+    assert again.build() == path and again.ptxas_log == first.ptxas_log
+    assert calls.read_text() == "x"                   # one compile in all
+    first.report_path().unlink()                      # built without one
+    assert again.build() == path and again.ptxas_log is None
+    src.write_text("FAIL\n")
+    with pytest.raises(RuntimeError, match="error: bad source"):
+        _nvcc.NvccLibrary(src, ("-O3",), "k").build()
 
 
 def test_torch_port_runs_in_a_process_without_jax_or_repro():

@@ -1,15 +1,16 @@
 """The non-kernel implementations of the model ops, as torch ops.
 
-The counterpart of ``repro.kernels.xla_impl``. The serving path needs only
-single-token decode attention over a KV cache (``decode_attention_xla``
-there), which the reference leaves to XLA rather than to a Pallas kernel;
-here it is plain PyTorch on both backends. The chunked flash forward and
-its hand-rolled backward, and the chunked WKV6 / Mamba scans, come with
-the training slice (``ROADMAP.md``).
+The counterpart of ``repro.kernels.xla_impl``. The serving paths need only
+the single-token steps the reference leaves to XLA rather than to a Pallas
+kernel: decode attention over a KV cache (``decode_attention_xla`` there)
+and the RWKV-6 decode step (``wkv6_decode``); here they are plain PyTorch
+on both backends. The chunked flash forward and its hand-rolled backward,
+and the chunked WKV6 (``wkv6_chunked``, the backward's forward) and Mamba
+scans, come with the training slice (``ROADMAP.md``).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -54,3 +55,22 @@ def decode_attention(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqs,bshd->bqhgd", p, vf)
     return out.reshape(B, 1, H, vf.shape[-1]).to(q.dtype)
+
+
+def wkv6_decode(
+    r: torch.Tensor,               # (B, 1, H, K)
+    k: torch.Tensor,               # (B, 1, H, K)
+    v: torch.Tensor,               # (B, 1, H, V)
+    w: torch.Tensor,               # (B, 1, H, K)
+    u: torch.Tensor,               # (H, K)
+    state: torch.Tensor,           # (B, H, K, V) running state, float32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-token RWKV-6 step (serving path); the counterpart of
+    ``repro.kernels.xla_impl.wkv6_decode``. Returns (y (B,1,H,V) in r's
+    dtype, the new state float32); ``state`` is not written."""
+    rf, kf, vf, wf = (a[:, 0].float() for a in (r, k, v, w))
+    kv = kf[..., :, None] * vf[..., None, :]               # (B,H,K,V)
+    y = torch.einsum("bhk,bhkv->bhv", rf,
+                     state + u.float()[None, ..., None] * kv)
+    new_state = wf[..., None] * state + kv
+    return y[:, None].to(r.dtype), new_state

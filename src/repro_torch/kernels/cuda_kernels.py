@@ -1,15 +1,15 @@
 """Build, binding and launch counts of the model substrate's CUDA kernels.
 
-``csrc/model_kernels.cu`` holds K4 (flash-attention forward) and K5
-(RMSNorm). :mod:`repro_torch._nvcc` compiles it at first use into
-``build/repro_torch/`` and ``ctypes`` loads it; a failed build raises with
-the compiler's output. The functions here launch a kernel on
-``torch.cuda.current_stream()`` with pointers the caller has checked
-(:mod:`repro_torch.kernels.flash_attention`,
-:mod:`repro_torch.kernels.rmsnorm` hold the checks and the plain
-versions), raise when ``cudaGetLastError()`` is not 0 after the launch,
-and add one to the kernel's launch count, which is counted nowhere else.
-Nothing synchronises.
+``csrc/model_kernels.cu`` holds K4 (flash-attention forward), K5
+(RMSNorm) and K6 (the RWKV-6 recurrence). :mod:`repro_torch._nvcc`
+compiles it at first use into ``build/repro_torch/`` and ``ctypes`` loads
+it; a failed build raises with the compiler's output. The functions here
+launch a kernel on ``torch.cuda.current_stream()`` with pointers the caller
+has checked (:mod:`repro_torch.kernels.flash_attention`,
+:mod:`repro_torch.kernels.rmsnorm`, :mod:`repro_torch.kernels.wkv6` hold
+the checks and the plain versions), raise when ``cudaGetLastError()`` is
+not 0 after the launch, and add one to the kernel's launch count, which is
+counted nowhere else. Nothing synchronises.
 """
 from __future__ import annotations
 
@@ -30,8 +30,10 @@ LIBRARY = _nvcc.NvccLibrary(SOURCE, NVCC_FLAGS, "model_kernels")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
+WKV_KEY_DIMS = (8, 16, 32, 64)      # K6 is built for these K
+WKV_MAX_V = 1024
 
-_LAUNCHES: Dict[str, int] = {"flash_attention": 0, "rmsnorm": 0}
+_LAUNCHES: Dict[str, int] = {"flash_attention": 0, "rmsnorm": 0, "wkv6": 0}
 _LIB: Optional[ctypes.CDLL] = None
 
 
@@ -56,6 +58,8 @@ def _library() -> ctypes.CDLL:
         lib.model_flash_attention_fwd.restype = i
         lib.model_rmsnorm_fwd.argtypes = [p, p, p, i, i, ll, i, f, p]
         lib.model_rmsnorm_fwd.restype = i
+        lib.model_wkv6_fwd.argtypes = [p] * 8 + [i] * 6 + [ll] * 12 + [p]
+        lib.model_wkv6_fwd.restype = i
         lib.model_error_string.argtypes = [i]
         lib.model_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -99,3 +103,22 @@ def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, out: torch.Tensor,
             DTYPE_CODES[x.dtype], DTYPE_CODES[scale.dtype], rows, D,
             float(eps), torch.cuda.current_stream(x.device).cuda_stream)
     _check("rmsnorm", lib, code)
+
+
+def wkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor, s0: Optional[torch.Tensor],
+             y: torch.Tensor, s_out: torch.Tensor) -> None:
+    """Launch K6 writing ``y`` (B, S, H, V) and ``s_out`` (B, H, K, V),
+    both contiguous; ``s0=None`` is a zero initial state."""
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    lib = _library()
+    strides = [*r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               *w.stride()[:3]]
+    with torch.cuda.device(r.device):
+        code = lib.model_wkv6_fwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), None if s0 is None else s0.data_ptr(),
+            y.data_ptr(), s_out.data_ptr(), DTYPE_CODES[r.dtype], B, S, H,
+            K, V, *strides, torch.cuda.current_stream(r.device).cuda_stream)
+    _check("wkv6", lib, code)

@@ -9,20 +9,22 @@ argument of every op, with the fabric backends' names:
     a failed build or a refused launch;
   * ``"torch"`` -- the plain PyTorch version, on any device.
 
-Single-token decode attention and attention with a dynamic ``kv_len`` are
-not Pallas kernels in the reference either (it sends them to XLA): they are
-torch ops on both backends. Gradients (``custom_vjp`` there,
-``torch.autograd.Function`` here) come with the training slice.
+Single-token decode attention, attention with a dynamic ``kv_len`` and
+the single-token RWKV-6 step are not Pallas kernels in the reference
+either (it sends them to XLA): they are torch ops on both backends.
+Gradients (``custom_vjp`` there, ``torch.autograd.Function`` here) come
+with the training slice.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import chunked, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
+from repro_torch.kernels.wkv6 import wkv6 as wkv6_kernel
 
 BACKENDS = ("cuda", "torch")
 
@@ -85,3 +87,24 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5, *,
     if backend == "torch":
         return ref.rmsnorm(x, scale, eps)
     return rmsnorm_kernel(x, scale, eps)
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         w: torch.Tensor, u: torch.Tensor,
+         s0: Optional[torch.Tensor] = None, *, backend: str = "cuda"
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 recurrence -> (y, final state): K6 on ``"cuda"``, the plain
+    sequential recurrence on ``"torch"``."""
+    check_backend(backend, r)
+    if backend == "torch":
+        return ref.wkv6(r, k, v, w, u, s0)
+    return wkv6_kernel(r, k, v, w, u, s0)
+
+
+def wkv6_decode(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                w: torch.Tensor, u: torch.Tensor, state: torch.Tensor, *,
+                backend: str = "cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-token RWKV-6 step: torch ops on both backends, as the
+    reference keeps it on XLA."""
+    check_backend(backend, r)
+    return chunked.wkv6_decode(r, k, v, w, u, state)

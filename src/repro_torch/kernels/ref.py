@@ -3,10 +3,10 @@ CUDA kernels are held against on the card, and what runs where the caller
 asks for the CPU or for ``backend="torch"``.
 
 The counterpart of ``repro.kernels.ref`` for the serving path: ``rmsnorm``,
-``attention`` (GQA / causal / sliding window / ``q_offset`` / ``kv_len``)
-and ``swiglu``, operation for operation but for RMSNorm's mean of squares
-(formed in float64, see :func:`rmsnorm`). ``wkv6`` and ``mamba_scan`` come
-with the slices that port their kernels (``ROADMAP.md``).
+``attention`` (GQA / causal / sliding window / ``q_offset`` / ``kv_len``),
+``swiglu`` and ``wkv6``, operation for operation but for RMSNorm's mean of
+squares (formed in float64, see :func:`rmsnorm`). ``mamba_scan`` comes with
+the slice that ports its kernel (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -88,3 +88,37 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     """SwiGLU MLP: silu(x@wg) * (x@wu) @ wd."""
     h = F.silu(x @ w_gate) * (x @ w_up)
     return h @ w_down
+
+
+def wkv6(
+    r: torch.Tensor,                   # (B, S, H, K)
+    k: torch.Tensor,                   # (B, S, H, K)
+    v: torch.Tensor,                   # (B, S, H, V)
+    w: torch.Tensor,                   # (B, S, H, K) decay in (0,1)
+    u: torch.Tensor,                   # (H, K) bonus for the current token
+    s0: Optional[torch.Tensor] = None,  # (B, H, K, V) initial state
+):
+    """RWKV-6 linear-attention recurrence (data-dependent decay).
+
+    y_t = r_t @ (S_t + u * (k_t ⊗ v_t))
+    S_{t+1} = w_t[:,None] * S_t + k_t ⊗ v_t
+    Returns (y: (B,S,H,V) in r's dtype, s_out: (B,H,K,V) float32). Math in
+    float32, one token at a time (the reference's ``lax.scan``).
+    """
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
+    uf = u.float()[None, :, :, None]                     # (1,H,K,1)
+    if s0 is None:
+        state = torch.zeros((B, H, K, V), dtype=torch.float32,
+                            device=r.device)
+    else:
+        state = s0.float()
+    ys = []
+    for t in range(S):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]  # (B,H,K,V)
+        ys.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], state + uf * kv))
+        state = wf[:, t, :, :, None] * state + kv
+    y = torch.stack(ys, dim=1) if ys else \
+        torch.zeros((B, 0, H, V), dtype=torch.float32, device=r.device)
+    return y.to(r.dtype), state

@@ -2,13 +2,14 @@
 
 The counterpart of ``repro.models.transformer`` for stacks whose every
 layer is GQA attention + dense MLP with RMSNorm and RoPE (``qwen2-7b``,
-``stablelm-12b``, ``starcoder2-15b``). The reference stacks each period
-slot's parameters ``(n_periods, ...)`` and runs the depth as one
+``stablelm-12b``, ``starcoder2-15b``), or RWKV-6 time mix + channel mix
+with LayerNorm and ``ln0`` (``rwkv6-3b``). The reference stacks each
+period slot's parameters ``(n_periods, ...)`` and runs the depth as one
 ``lax.scan``; here each layer is a block in an ``nn.ModuleList`` walked by
 a Python loop, and the logical-sharding annotations drop out (one card,
-no mesh). Layers this slice lacks -- MLA, MoE, the RWKV and Mamba mixers,
-cross attention, M-RoPE, learned positions, the vision frontend, MTP --
-are refused when the model is built (:func:`check_supported`).
+no mesh). Layers the port lacks -- MLA, MoE, the Mamba mixer, cross
+attention, M-RoPE, learned positions, the vision frontend, MTP -- are
+refused when the model is built (:func:`check_supported`).
 
 Modes:
   * ``train``   -- full causal pass, logits, no cache (losses come with
@@ -16,8 +17,9 @@ Modes:
   * ``prefill`` -- causal pass that also fills the decode cache.
   * ``decode``  -- one new token against the cache (S == 1).
 
-The cache is a list with one ``{"attn": {"k", "v"}}`` dict per layer,
-written in place.
+The cache is a list with one dict per layer, written in place:
+``{"attn": {"k", "v"}}`` for GQA, ``{"attn": {"last_x", "state"},
+"mlp": {"last_x"}}`` for RWKV-6.
 """
 from __future__ import annotations
 
@@ -32,7 +34,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpm
-from repro_torch.models.params import (dense_init, embed_init, ones, param)
+from repro_torch.models import ssm as ssmm
+from repro_torch.models.params import (dense_init, embed_init, ones, param,
+                                       zeros)
 from repro_torch.models.rope import positions_for
 
 Cache = List[Dict[str, Any]]
@@ -100,7 +104,8 @@ def layer_layout(cfg: ModelConfig) -> Tuple[int, List[LayerKind], int]:
     return 0, kinds, 1
 
 
-SUPPORTED_KIND = LayerKind("gqa", "dense", False)
+SUPPORTED_KINDS = (LayerKind("gqa", "dense", False),
+                   LayerKind("rwkv", "cmix", False))
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -118,12 +123,12 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.mtp_depth > 0:
         missing.append("multi-token prediction")
     kinds = {kind_for_layer(cfg, i) for i in range(cfg.num_layers)}
-    for k in sorted(kinds - {SUPPORTED_KIND}, key=str):
+    for k in sorted(kinds - set(SUPPORTED_KINDS), key=str):
         missing.append(f"{k.mixer} mixer + {k.mlp} mlp layers")
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet; this slice "
-            f"of the port serves GQA + dense-MLP decoders (ROADMAP.md, "
+            f"{cfg.name}: {', '.join(missing)} not ported yet; the port "
+            f"serves GQA + dense-MLP decoders and RWKV-6 (ROADMAP.md, "
             f"Queue 1, lists what comes next)")
 
 
@@ -132,35 +137,68 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _norm_init(cfg: ModelConfig, *, device=None) -> nn.ParameterDict:
-    return nn.ParameterDict({"scale": param(ones(
-        (cfg.d_model,), getattr(torch, cfg.param_dtype), device))})
+def _norm_init(cfg: ModelConfig, with_bias: bool, *, device=None
+               ) -> nn.ParameterDict:
+    dt = getattr(torch, cfg.param_dtype)
+    p = {"scale": param(ones((cfg.d_model,), dt, device))}
+    if with_bias:
+        p["bias"] = param(zeros((cfg.d_model,), dt, device))
+    return nn.ParameterDict(p)
 
 
 def _norm(p: nn.ParameterDict, x: torch.Tensor, eps: float, *,
           backend: str) -> torch.Tensor:
+    """LayerNorm (RWKV) when the norm has a bias, as plain float32 torch
+    ops (it is jnp, not a Pallas kernel, in the reference); RMSNorm (K5 on
+    ``backend="cuda"``) otherwise."""
+    if "bias" in p:
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
     return ops.rmsnorm(x, p["scale"], eps, backend=backend)
+
+
+def _uses_ln_bias(cfg: ModelConfig) -> bool:
+    return (cfg.ssm is not None and cfg.ssm.kind == "rwkv6") or \
+        cfg.family == "encdec"
 
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, kind: LayerKind, *,
                device=None) -> nn.ModuleDict:
-    if kind != SUPPORTED_KIND:
+    if kind not in SUPPORTED_KINDS:
         raise NotImplementedError(f"{kind} layers are not ported yet")
-    d_ff = cfg.moe.d_ff_dense if (cfg.moe and cfg.moe.d_ff_dense) \
-        else cfg.d_ff
-    return nn.ModuleDict({
-        "norm1": _norm_init(cfg, device=device),
-        "norm2": _norm_init(cfg, device=device),
-        "mixer": attn.gqa_init(gen, cfg, device=device),
-        "mlp": mlpm.mlp_init(gen, cfg, d_ff=d_ff, device=device),
-    })
+    b = _uses_ln_bias(cfg)
+    p = {"norm1": _norm_init(cfg, b, device=device),
+         "norm2": _norm_init(cfg, b, device=device)}
+    if kind.mixer == "rwkv":
+        p["mixer"] = ssmm.rwkv_tmix_init(gen, cfg, device=device)
+        p["mlp"] = ssmm.rwkv_cmix_init(gen, cfg, device=device)
+    else:
+        d_ff = cfg.moe.d_ff_dense if (cfg.moe and cfg.moe.d_ff_dense) \
+            else cfg.d_ff
+        p["mixer"] = attn.gqa_init(gen, cfg, device=device)
+        p["mlp"] = mlpm.mlp_init(gen, cfg, d_ff=d_ff, device=device)
+    return nn.ModuleDict(p)
 
 
 def block_cache(cfg: ModelConfig, kind: LayerKind, batch: int, max_len: int,
                 *, device=None) -> Dict[str, Any]:
     """Decode cache for one block (zeros; filled by prefill)."""
-    if kind.mixer != "gqa":
-        raise NotImplementedError(f"{kind.mixer} caches are not ported yet")
+    if kind not in SUPPORTED_KINDS:
+        raise NotImplementedError(f"{kind} caches are not ported yet")
+    if kind.mixer == "rwkv":
+        # the last normed input of each mixer; the (K, K) state per head
+        H, K = cfg.num_heads, cfg.ssm.head_dim
+        last_x = lambda: torch.zeros((batch, cfg.d_model),
+                                     dtype=getattr(torch, cfg.dtype),
+                                     device=device)
+        return {"attn": {"last_x": last_x(),
+                         "state": torch.zeros((batch, H, K, K),
+                                              dtype=torch.float32,
+                                              device=device)},
+                "mlp": {"last_x": last_x()}}
     return {"attn": attn.gqa_init_cache(cfg, batch, max_len, device=device)}
 
 
@@ -169,6 +207,7 @@ def block_apply(
     x: torch.Tensor,                # (B, S, D)
     *,
     cfg: ModelConfig,
+    kind: LayerKind,
     positions: torch.Tensor,
     pos0: Union[int, torch.Tensor],
     mode: str,
@@ -177,17 +216,33 @@ def block_apply(
     causal: bool = True,
     backend: str = "cuda",
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """Returns (x_out, new_cache)."""
+    """Returns (x_out, new_cache). ``kv_len`` and ``pos0`` are unused by
+    RWKV layers, as in the reference."""
     eps = cfg.norm_eps
+    new_cache: Dict[str, Any] = {}
     h = _norm(p["norm1"], x, eps, backend=backend)
-    out, nc = attn.gqa_apply(p["mixer"], h, cfg=cfg, positions=positions,
-                             mode=mode, cache=cache["attn"] if cache else None,
-                             kv_len=kv_len, pos0=pos0, causal=causal,
-                             backend=backend)
+    if kind.mixer == "rwkv":
+        out, nc = ssmm.rwkv_tmix_apply(
+            p["mixer"], h, cfg=cfg, mode=mode,
+            cache=cache["attn"] if cache else None, backend=backend)
+    else:
+        out, nc = attn.gqa_apply(
+            p["mixer"], h, cfg=cfg, positions=positions, mode=mode,
+            cache=cache["attn"] if cache else None, kv_len=kv_len, pos0=pos0,
+            causal=causal, backend=backend)
+    if nc is not None:
+        new_cache["attn"] = nc
     x = x + out
     h2 = _norm(p["norm2"], x, eps, backend=backend)
-    x = x + mlpm.mlp_apply(p["mlp"], h2, cfg=cfg)
-    return x, ({"attn": nc} if nc is not None else None)
+    if kind.mlp == "cmix":
+        out, nc = ssmm.rwkv_cmix_apply(p["mlp"], h2, cfg=cfg, mode=mode,
+                                       cache=cache["mlp"] if cache else None)
+        if nc is not None:
+            new_cache["mlp"] = nc
+    else:
+        out = mlpm.mlp_apply(p["mlp"], h2, cfg=cfg)
+    x = x + out
+    return x, (new_cache if new_cache else None)
 
 
 # ---------------------------------------------------------------------------
@@ -196,14 +251,17 @@ def block_apply(
 
 
 class Params(nn.Module):
-    """The decoder's parameters: ``embed``, ``blocks`` (one per layer),
+    """The decoder's parameters: ``embed``, ``ln0`` (RWKV-6's norm of the
+    embeddings; absent elsewhere), ``blocks`` (one per layer),
     ``final_norm`` and ``lm_head`` (absent with tied embeddings)."""
 
     def __init__(self, embed: torch.Tensor, blocks: List[nn.ModuleDict],
                  final_norm: nn.ParameterDict,
-                 lm_head: Optional[torch.Tensor]):
+                 lm_head: Optional[torch.Tensor],
+                 ln0: Optional[nn.ParameterDict] = None):
         super().__init__()
         self.embed = param(embed)
+        self.ln0 = ln0
         self.blocks = nn.ModuleList(blocks)
         self.final_norm = final_norm
         self.lm_head = param(lm_head) if lm_head is not None else None
@@ -216,14 +274,17 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *, device=None
     Vp = cfg.padded_vocab()
     D = cfg.d_model
     embed = embed_init(gen, Vp, D, dtype=dt, device=device)
+    ln0 = None
+    if cfg.ssm is not None and cfg.ssm.kind == "rwkv6":
+        ln0 = _norm_init(cfg, True, device=device)
     blocks = [block_init(gen, cfg, kind_for_layer(cfg, i), device=device)
               for i in range(cfg.num_layers)]
-    final_norm = _norm_init(cfg, device=device)
+    final_norm = _norm_init(cfg, _uses_ln_bias(cfg), device=device)
     lm_head = None
     if not cfg.tie_embeddings:
         lm_head = dense_init(gen, D, Vp, std=1.0 / math.sqrt(D), dtype=dt,
                              device=device)
-    return Params(embed, blocks, final_norm, lm_head)
+    return Params(embed, blocks, final_norm, lm_head, ln0)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None
@@ -238,9 +299,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None
 # ---------------------------------------------------------------------------
 
 
-def _embed(p: Params, cfg: ModelConfig, tokens: torch.Tensor
-           ) -> torch.Tensor:
-    return p.embed[tokens].to(getattr(torch, cfg.dtype))
+def _embed(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+           backend: str) -> torch.Tensor:
+    x = p.embed[tokens].to(getattr(torch, cfg.dtype))
+    if p.ln0 is not None:
+        x = _norm(p.ln0, x, cfg.norm_eps, backend=backend)
+    return x
 
 
 def _run_stack(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
@@ -250,7 +314,8 @@ def _run_stack(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
     """The layers in order. Returns (x, new_cache)."""
     new_cache = []
     for i, blk in enumerate(p.blocks):
-        x, nc = block_apply(blk, x, cfg=cfg, positions=positions, pos0=pos0,
+        x, nc = block_apply(blk, x, cfg=cfg, kind=kind_for_layer(cfg, i),
+                            positions=positions, pos0=pos0,
                             mode=mode, cache=cache[i] if cache else None,
                             kv_len=kv_len, backend=backend)
         new_cache.append(nc)
@@ -289,7 +354,7 @@ def forward(
         pos0 = 0 if pos0 is None else pos0
     elif pos0 is None:
         pos0 = int(positions[0, 0])
-    x = _embed(p, cfg, tokens)
+    x = _embed(p, cfg, tokens, backend=backend)
     x, new_cache = _run_stack(p, x, cfg=cfg, positions=positions, pos0=pos0,
                               mode=mode, cache=cache,
                               kv_len=batch.get("kv_len"), backend=backend)

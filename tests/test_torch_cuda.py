@@ -199,8 +199,111 @@ def test_torch_cuda_smoke_generate_matches_torch_backend(card):
     a, _ = generate(arch="qwen2-7b", prompt_tokens=prompts, model=model,
                     max_new_tokens=6)
     assert MK.launch_counts() == {"flash_attention": cfg.num_layers,
-                                  "rmsnorm": (2 * cfg.num_layers + 1) * 7}
+                                  "rmsnorm": (2 * cfg.num_layers + 1) * 7,
+                                  "wkv6": 0}
     b, _ = generate(arch="qwen2-7b", prompt_tokens=prompts, model=model,
+                    max_new_tokens=6, backend="torch")
+    assert torch.equal(a, b)
+
+
+def _load_chip_smoke():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+# K6 (the WKV6 recurrence) within 2e-4 of its plain version in float32
+# and 2e-2 in bfloat16, y and the final state (tests/test_kernels.py's),
+# over chip_smoke.py's cases and inputs
+SMOKE = _load_chip_smoke()
+REAL = SMOKE.REAL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SMOKE.WKV_CASES, ids=lambda c: c[0])
+def test_torch_cuda_wkv6_matches_plain_version(card, dtype, case):
+    from repro_torch.kernels import cuda_kernels as MK
+    from repro_torch.kernels.wkv6 import plain, wkv6
+    _, shape, with_s0, logw = case
+    args = SMOKE.wkv_inputs(shape, with_s0, logw, dtype, seed=shape[1])
+    before = MK.launch_counts()["wkv6"]
+    y, s = wkv6(*args)
+    torch.cuda.synchronize()
+    assert MK.launch_counts()["wkv6"] == before + 1
+    assert y.dtype == dtype and s.dtype == torch.float32
+    y_want, s_want = plain(*args)
+    t = 2e-2 if dtype == torch.bfloat16 else 2e-4
+    torch.testing.assert_close(y.float(), y_want.float(), rtol=t, atol=t)
+    torch.testing.assert_close(s, s_want, rtol=t, atol=t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_torch_cuda_wkv6_reads_strided_unaligned_views(card, dtype):
+    """r, k, w and v as views into wider tensors, offset by one element:
+    rows that are not 16-byte aligned take the kernel's scalar loads."""
+    from repro_torch.kernels.wkv6 import plain, wkv6
+    B, S, H, K, V = 2, 70, 3, 64, 48
+    args = list(SMOKE.wkv_inputs((B, S, H, K + 1, V + 3), True, REAL, dtype,
+                                 seed=5))
+    for i in range(4):
+        n = V if i == 2 else K
+        args[i] = args[i][..., 1:n + 1]
+        assert args[i].stride(-1) == 1 and not args[i].is_contiguous()
+    args[4] = args[4][:, :K].contiguous()
+    args[5] = args[5][:, :, :K, :V].contiguous()
+    y, s = wkv6(*args)
+    y_want, s_want = plain(*args)
+    t = 2e-2 if dtype == torch.bfloat16 else 2e-4
+    torch.testing.assert_close(y.float(), y_want.float(), rtol=t, atol=t)
+    torch.testing.assert_close(s, s_want, rtol=t, atol=t)
+
+
+def test_torch_cuda_wkv6_wrapper_refuses_what_the_kernel_does_not_take(card):
+    from repro_torch.kernels import cuda_kernels as MK
+    from repro_torch.kernels.wkv6 import wkv6
+    before = MK.launch_counts()["wkv6"]
+    r, k, v, w, u, s0 = SMOKE.wkv_inputs((1, 8, 2, 48, 48), True,
+                                         (-1.0, -0.1), torch.float32, seed=0)
+    with pytest.raises(ValueError, match="key dim K = 48"):
+        wkv6(r, k, v, w, u, s0)
+    r, k, v, w, u, s0 = SMOKE.wkv_inputs((1, 8, 2, 32, 32), True,
+                                         (-1.0, -0.1), torch.float32, seed=0)
+    with pytest.raises(ValueError, match="float32 or torch.bfloat16"):
+        wkv6(r.half(), k.half(), v.half(), w.half(), u, s0)
+    with pytest.raises(ValueError, match="u must be torch.float32"):
+        wkv6(r, k, v, w, u.bfloat16(), s0)
+    with pytest.raises(ValueError, match="last dimension must be contiguous"):
+        wkv6(r.transpose(2, 3).contiguous().transpose(2, 3), k, v, w, u, s0)
+    with pytest.raises(ValueError, match="s0 must be a contiguous"):
+        wkv6(r, k, v, w, u, s0.transpose(2, 3))
+    with pytest.raises(ValueError, match="value dim V = 1025"):
+        wkv6(r, k, torch.zeros(1, 8, 2, 1025, device=card), w, u)
+    assert MK.launch_counts()["wkv6"] == before
+
+
+def test_torch_cuda_smoke_rwkv_generate_matches_torch_backend(card):
+    """The RWKV-6 serving path on the card with K6, float32 smoke model:
+    one K6 launch per layer in the prefill, none in the decode steps, and
+    the same greedy tokens as the plain versions."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.kernels import cuda_kernels as MK
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.api import build_model
+    cfg = get_model_config("rwkv6-3b", smoke=True).replace(
+        dtype="float32", param_dtype="float32")
+    model = build_model(cfg)
+    model.init(0)
+    prompts = np.random.default_rng(0).integers(0, 512, size=(2, 40))
+    MK.reset_launch_counts()
+    a, _ = generate(arch="rwkv6-3b", prompt_tokens=prompts, model=model,
+                    max_new_tokens=6)
+    assert MK.launch_counts() == {"flash_attention": 0, "rmsnorm": 0,
+                                  "wkv6": cfg.num_layers}
+    b, _ = generate(arch="rwkv6-3b", prompt_tokens=prompts, model=model,
                     max_new_tokens=6, backend="torch")
     assert torch.equal(a, b)
 
@@ -209,15 +312,9 @@ def test_torch_cuda_smoke_builds_twice_in_one_checkout(card, capsys):
     """``chip_smoke.build_all`` on libraries that are already built (a
     second run, or a run after these tests) loads them and still reports
     their registers."""
-    import importlib.util
     import json
-    import pathlib
-    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
     for _ in range(2):
-        smoke.build_all()
+        SMOKE.build_all()
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
              if ln.startswith("{")]
     builds = [ln["model_build"] for ln in lines if "model_build" in ln]

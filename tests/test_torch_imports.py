@@ -33,12 +33,14 @@ def test_torch_port_has_the_expected_files():
                  "src/repro_torch/kernels/chunked.py",
                  "src/repro_torch/kernels/flash_attention.py",
                  "src/repro_torch/kernels/rmsnorm.py",
+                 "src/repro_torch/kernels/wkv6.py",
                  "src/repro_torch/kernels/cuda_kernels.py",
                  "src/repro_torch/kernels/ops.py",
                  "src/repro_torch/models/params.py",
                  "src/repro_torch/models/rope.py",
                  "src/repro_torch/models/attention.py",
                  "src/repro_torch/models/mlp.py",
+                 "src/repro_torch/models/ssm.py",
                  "src/repro_torch/models/transformer.py",
                  "src/repro_torch/models/api.py",
                  "src/repro_torch/models/convert.py",

@@ -72,7 +72,8 @@ def test_torch_cuda_backend_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="not in"):
         ops.rmsnorm(x, torch.ones(32), backend="triton")
     assert cuda_kernels.launch_counts() == before == {"flash_attention": 0,
-                                                      "rmsnorm": 0}
+                                                      "rmsnorm": 0,
+                                                      "wkv6": 0}
 
 
 def test_torch_generate_refuses_what_the_slice_lacks():

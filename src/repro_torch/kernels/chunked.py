@@ -2,10 +2,11 @@
 
 The counterpart of ``repro.kernels.xla_impl``. The serving paths need only
 the single-token steps the reference leaves to XLA rather than to a Pallas
-kernel: decode attention over a KV cache (``decode_attention_xla`` there)
-and the RWKV-6 decode step (``wkv6_decode``); here they are plain PyTorch
-on both backends. The chunked flash forward and its hand-rolled backward,
-and the chunked WKV6 (``wkv6_chunked``, the backward's forward) and Mamba
+kernel: decode attention over a KV cache (``decode_attention_xla`` there),
+the RWKV-6 decode step (``wkv6_decode``) and the Mamba decode step
+(``mamba_decode``); here they are plain PyTorch on both backends. The
+chunked flash forward and its hand-rolled backward, and the chunked WKV6
+(``wkv6_chunked``, the backward's forward) and Mamba (``mamba_chunked``)
 scans, come with the training slice (``ROADMAP.md``).
 """
 from __future__ import annotations
@@ -74,3 +75,25 @@ def wkv6_decode(
                      state + u.float()[None, ..., None] * kv)
     new_state = wf[..., None] * state + kv
     return y[:, None].to(r.dtype), new_state
+
+
+def mamba_decode(
+    x: torch.Tensor,               # (B, 1, D)
+    dt: torch.Tensor,              # (B, 1, D)
+    A: torch.Tensor,               # (D, N)
+    Bm: torch.Tensor,              # (B, 1, N)
+    C: torch.Tensor,               # (B, 1, N)
+    D: torch.Tensor,               # (D,)
+    h: torch.Tensor,               # (B, D, N) running state, float32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-token selective-scan step (serving path); the counterpart of
+    ``repro.kernels.xla_impl.mamba_decode``. Returns (y (B,1,D) in x's
+    dtype, the new state float32); ``h`` is not written."""
+    xf = x[:, 0].float()
+    dtf = dt[:, 0].float()
+    Bf = Bm[:, 0].float()
+    Cf = C[:, 0].float()
+    dA = torch.exp(dtf[..., None] * A.float()[None])
+    h_new = dA * h + (dtf * xf)[..., None] * Bf[:, None, :]
+    y = torch.einsum("bdn,bn->bd", h_new, Cf) + D.float()[None] * xf
+    return y[:, None].to(x.dtype), h_new

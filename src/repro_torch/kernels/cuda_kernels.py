@@ -1,13 +1,15 @@
 """Build, binding and launch counts of the model substrate's CUDA kernels.
 
 ``csrc/model_kernels.cu`` holds K4 (flash-attention forward), K5
-(RMSNorm) and K6 (the RWKV-6 recurrence). :mod:`repro_torch._nvcc`
+(RMSNorm), K6 (the RWKV-6 recurrence) and K7 (the Mamba-1 selective
+scan). :mod:`repro_torch._nvcc`
 compiles it at first use into ``build/repro_torch/`` and ``ctypes`` loads
 it; a failed build raises with the compiler's output. The functions here
 launch a kernel on ``torch.cuda.current_stream()`` with pointers the caller
 has checked (:mod:`repro_torch.kernels.flash_attention`,
-:mod:`repro_torch.kernels.rmsnorm`, :mod:`repro_torch.kernels.wkv6` hold
-the checks and the plain versions), raise when ``cudaGetLastError()`` is
+:mod:`repro_torch.kernels.rmsnorm`, :mod:`repro_torch.kernels.wkv6`,
+:mod:`repro_torch.kernels.mamba_scan` hold the checks and the plain
+versions), raise when ``cudaGetLastError()`` is
 not 0 after the launch, and add one to the kernel's launch count, which is
 counted nowhere else. Nothing synchronises.
 """
@@ -32,8 +34,10 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
 WKV_KEY_DIMS = (8, 16, 32, 64)      # K6 is built for these K
 WKV_MAX_V = 1024
+MAMBA_STATE_DIMS = (8, 16)          # K7 is built for these N
 
-_LAUNCHES: Dict[str, int] = {"flash_attention": 0, "rmsnorm": 0, "wkv6": 0}
+_LAUNCHES: Dict[str, int] = {"flash_attention": 0, "rmsnorm": 0, "wkv6": 0,
+                             "mamba_scan": 0}
 _LIB: Optional[ctypes.CDLL] = None
 
 
@@ -60,6 +64,9 @@ def _library() -> ctypes.CDLL:
         lib.model_rmsnorm_fwd.restype = i
         lib.model_wkv6_fwd.argtypes = [p] * 8 + [i] * 6 + [ll] * 12 + [p]
         lib.model_wkv6_fwd.restype = i
+        lib.model_mamba_scan_fwd.argtypes = [p] * 9 + [i] * 5 + [ll] * 8 \
+            + [p]
+        lib.model_mamba_scan_fwd.restype = i
         lib.model_error_string.argtypes = [i]
         lib.model_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -122,3 +129,24 @@ def wkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             y.data_ptr(), s_out.data_ptr(), DTYPE_CODES[r.dtype], B, S, H,
             K, V, *strides, torch.cuda.current_stream(r.device).cuda_stream)
     _check("wkv6", lib, code)
+
+
+def mamba_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bm: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                   h0: Optional[torch.Tensor], y: torch.Tensor,
+                   h_out: torch.Tensor) -> None:
+    """Launch K7 writing ``y`` (B, S, Din) and ``h_out`` (B, Din, N), both
+    contiguous; ``h0=None`` is a zero initial state."""
+    B, S, Din = x.shape
+    N = A.shape[-1]
+    lib = _library()
+    strides = [*x.stride()[:2], *dt.stride()[:2], *Bm.stride()[:2],
+               *C.stride()[:2]]
+    with torch.cuda.device(x.device):
+        code = lib.model_mamba_scan_fwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            C.data_ptr(), D.data_ptr(),
+            None if h0 is None else h0.data_ptr(), y.data_ptr(),
+            h_out.data_ptr(), DTYPE_CODES[x.dtype], B, S, Din, N, *strides,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _check("mamba_scan", lib, code)

@@ -10,8 +10,9 @@ argument of every op, with the fabric backends' names:
   * ``"torch"`` -- the plain PyTorch version, on any device.
 
 Single-token decode attention, attention with a dynamic ``kv_len`` and
-the single-token RWKV-6 step are not Pallas kernels in the reference
-either (it sends them to XLA): they are torch ops on both backends.
+the single-token RWKV-6 and Mamba steps are not Pallas kernels in the
+reference either (it sends them to XLA): they are torch ops on both
+backends.
 Gradients (``custom_vjp`` there, ``torch.autograd.Function`` here) come
 with the training slice.
 """
@@ -23,6 +24,7 @@ import torch
 
 from repro_torch.kernels import chunked, ref
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.mamba_scan import mamba_scan as mamba_scan_kernel
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
 from repro_torch.kernels.wkv6 import wkv6 as wkv6_kernel
 
@@ -108,3 +110,25 @@ def wkv6_decode(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     reference keeps it on XLA."""
     check_backend(backend, r)
     return chunked.wkv6_decode(r, k, v, w, u, state)
+
+
+def mamba_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+               Bm: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+               h0: Optional[torch.Tensor] = None, *, backend: str = "cuda"
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-1 selective scan -> (y, final state): K7 on ``"cuda"``, the
+    plain sequential recurrence on ``"torch"``. ``h0=None`` is zeros."""
+    check_backend(backend, x)
+    if backend == "torch":
+        return ref.mamba_scan(x, dt, A, Bm, C, D, h0)
+    return mamba_scan_kernel(x, dt, A, Bm, C, D, h0)
+
+
+def mamba_decode(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                 h: torch.Tensor, *, backend: str = "cuda"
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-token Mamba step: torch ops on both backends, as the
+    reference keeps it on XLA."""
+    check_backend(backend, x)
+    return chunked.mamba_decode(x, dt, A, Bm, C, D, h)

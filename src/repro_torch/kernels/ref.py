@@ -4,9 +4,8 @@ asks for the CPU or for ``backend="torch"``.
 
 The counterpart of ``repro.kernels.ref`` for the serving path: ``rmsnorm``,
 ``attention`` (GQA / causal / sliding window / ``q_offset`` / ``kv_len``),
-``swiglu`` and ``wkv6``, operation for operation but for RMSNorm's mean of
-squares (formed in float64, see :func:`rmsnorm`). ``mamba_scan`` comes with
-the slice that ports its kernel (``ROADMAP.md``).
+``swiglu``, ``wkv6`` and ``mamba_scan``, operation for operation but for
+RMSNorm's mean of squares (formed in float64, see :func:`rmsnorm`).
 """
 from __future__ import annotations
 
@@ -122,3 +121,39 @@ def wkv6(
     y = torch.stack(ys, dim=1) if ys else \
         torch.zeros((B, 0, H, V), dtype=torch.float32, device=r.device)
     return y.to(r.dtype), state
+
+
+def mamba_scan(
+    x: torch.Tensor,                   # (B, S, D) post-conv, post-silu input
+    dt: torch.Tensor,                  # (B, S, D) softplus'd timestep
+    A: torch.Tensor,                   # (D, N) negative (= -exp(A_log))
+    Bm: torch.Tensor,                  # (B, S, N)
+    C: torch.Tensor,                   # (B, S, N)
+    D: torch.Tensor,                   # (D,)
+    h0: Optional[torch.Tensor] = None,  # (B, D, N)
+):
+    """Selective state-space scan (Mamba-1).
+
+    h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) * B_t;
+    y_t = C_t . h_t + D * x_t
+    Returns (y: (B,S,D) in x's dtype, h_out: (B,D,N) float32). Math in
+    float32, one token at a time (the reference's ``lax.scan``).
+    """
+    B, S, Dm = x.shape
+    N = A.shape[-1]
+    xf, dtf, Bf, Cf = (a.float() for a in (x, dt, Bm, C))
+    Af = A.float()
+    if h0 is None:
+        h = torch.zeros((B, Dm, N), dtype=torch.float32, device=x.device)
+    else:
+        h = h0.float()
+    ys = []
+    for t in range(S):
+        dA = torch.exp(dtf[:, t, :, None] * Af[None])           # (B,D,N)
+        dBx = (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
+        h = dA * h + dBx
+        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
+    y = torch.stack(ys, dim=1) if ys else \
+        torch.zeros((B, 0, Dm), dtype=torch.float32, device=x.device)
+    y = y + xf * D.float()[None, None, :]
+    return y.to(x.dtype), h

@@ -1,20 +1,29 @@
-"""Dense MLP (SwiGLU / GELU, optional bias).
+"""MLPs: dense (SwiGLU / GELU, optional bias) and dropless MoE.
 
-The counterpart of the dense half of ``repro.models.mlp``. On one card the
-reference's row-parallel ``tp_row_matmul`` is a plain product. The dropless
-MoE layer comes with the MoE slice (``ROADMAP.md``).
+The counterpart of ``repro.models.mlp`` on one card: the reference's
+row-parallel ``tp_row_matmul`` is a plain product, and of the MoE layer
+only the branch without a mesh is ported (no ``shard_map``, no ``psum``).
+
+The MoE layer is the sort-based dropless formulation: the (token, choice)
+pairs are sorted by expert with a stable sort, each expert's contiguous
+slice goes through its weights, and the weighted results are added back to
+their tokens. The reference computes the expert products with
+``jax.lax.ragged_dot`` (XLA, not a Pallas kernel); here they are one
+``torch.matmul`` per non-empty expert, which needs the group sizes on the
+host: one synchronisation per MoE layer.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.params import dense_init, param, zeros
+from repro_torch.models.params import (dense_init, param, trunc_normal,
+                                       zeros)
 
 
 def mlp_init(gen: torch.Generator, cfg: ModelConfig,
@@ -57,3 +66,106 @@ def mlp_apply(p: nn.ParameterDict, x: torch.Tensor, *, cfg: ModelConfig
     if cfg.mlp_bias:
         out = out + p["b_down"]
     return out
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig, *, device=None
+             ) -> nn.ParameterDict:
+    mo = cfg.moe
+    D = cfg.d_model
+    E = mo.num_experts
+    Fd = mo.d_ff_expert
+    kw = dict(dtype=getattr(torch, cfg.param_dtype), device=device)
+    out_std = 1.0 / math.sqrt(2 * cfg.num_layers * Fd)
+
+    def expert_stack(d_in, d_out, std):
+        return trunc_normal(gen, (E, d_in, d_out), std=std, **kw)
+
+    p = {
+        # float32 whatever param_dtype is, as in the reference
+        "router": dense_init(gen, D, E, std=0.02, dtype=torch.float32,
+                             device=device),
+        "w_gate": expert_stack(D, Fd, 1.0 / math.sqrt(D)),
+        "w_up": expert_stack(D, Fd, 1.0 / math.sqrt(D)),
+        "w_down": expert_stack(Fd, D, out_std),
+    }
+    if mo.router == "sigmoid":
+        p["router_bias"] = zeros((E,), dtype=torch.float32, device=device)
+    out = nn.ParameterDict({k: param(v) for k, v in p.items()})
+    if mo.num_shared_experts > 0:
+        out["shared"] = mlp_init(gen, cfg, d_ff=Fd * mo.num_shared_experts,
+                                 device=device)
+    return out
+
+
+def _route(p, x2: torch.Tensor, mo
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x2: (T, D) tokens. Returns (weights (T,k) float32, ids (T,k), aux).
+    ``topk`` returns its choices sorted by score, as ``lax.top_k`` does."""
+    logits = x2.float() @ p["router"]                         # (T, E)
+    k = mo.num_experts_per_tok
+    if mo.router == "sigmoid":
+        scores = torch.sigmoid(logits)
+        sel = scores + p["router_bias"]                      # bias for top-k
+        _, ids = torch.topk(sel, k, dim=-1, sorted=True)
+        w = torch.gather(scores, -1, ids)                    # weight w/o bias
+        w = w / (w.sum(-1, keepdim=True) + 1e-9)
+        probs = scores / (scores.sum(-1, keepdim=True) + 1e-9)
+    else:
+        probs = torch.softmax(logits, -1)
+        w, ids = torch.topk(probs, k, dim=-1, sorted=True)
+        w = w / (w.sum(-1, keepdim=True) + 1e-9)
+    # load-balance aux (Switch-style): E * sum_e f_e * P_e
+    E = logits.shape[-1]
+    f = F.one_hot(ids, E).float().mean(dim=(0, 1)) * k
+    pbar = probs.mean(dim=0)
+    aux = E * (f * pbar).sum()
+    return w, ids, aux
+
+
+def _moe_local(p, x2: torch.Tensor, mo, act: str
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dropless MoE on the tokens x2 (T, D). Returns (out (T,D), aux)."""
+    T, D = x2.shape
+    k = mo.num_experts_per_tok
+    E = mo.num_experts
+    w, ids, aux = _route(p, x2, mo)
+    flat_ids = ids.reshape(-1)                               # (T*k,)
+    order = torch.argsort(flat_ids, stable=True)
+    token_of = order // k                                    # source token
+    xs = x2[token_of]                                        # (T*k, D) sorted
+    # the group sizes go to the host: one synchronisation per layer
+    sizes = torch.bincount(flat_ids, minlength=E).tolist()
+    y = torch.empty_like(xs)
+    start = 0
+    for e, n in enumerate(sizes):
+        if n == 0:
+            continue
+        seg = xs[start:start + n]
+        g = seg @ p["w_gate"][e]
+        u = seg @ p["w_up"][e]
+        h = F.silu(g) * u if act == "swiglu" else \
+            F.gelu(u + g, approximate="tanh")   # jax.nn.gelu's default
+        y[start:start + n] = h @ p["w_down"][e]
+        start += n
+    wsort = w.reshape(-1)[order]                             # (T*k,)
+    y = y * wsort[:, None].to(y.dtype)
+    out = torch.zeros((T, D), dtype=y.dtype, device=y.device)
+    out.index_add_(0, token_of, y)
+    return out, aux
+
+
+def moe_apply(p, x: torch.Tensor, *, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (out (B,S,D), aux_loss scalar); the aux loss is computed
+    and, in serving, unused, as in the reference."""
+    mo = cfg.moe
+    out, aux = _moe_local(p, x.reshape(-1, x.shape[-1]), mo, cfg.act)
+    out = out.reshape(x.shape)
+    if mo.num_shared_experts > 0:
+        out = out + mlp_apply(p["shared"], x, cfg=cfg)
+    return out, aux

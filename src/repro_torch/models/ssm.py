@@ -1,16 +1,17 @@
-"""SSM mixers: RWKV-6 ("Finch") time-mix and channel-mix.
+"""SSM mixers: RWKV-6 ("Finch") time-mix and channel-mix, and Mamba-1 in
+the Jamba flavour (RMSNorm on dt, B and C).
 
-The counterpart of the RWKV-6 half of ``repro.models.ssm``: projections,
-token-shift plumbing and decode-state management. The recurrence itself is
-in :mod:`repro_torch.kernels.ops` (K6 on ``backend="cuda"`` for a prefill,
-the plain recurrence on ``"torch"``; the single-token decode step is torch
-ops on both, as it is XLA in the reference). The logical-sharding
-annotations drop out (one card, no mesh).
+The counterpart of ``repro.models.ssm``: projections, token-shift and
+convolution plumbing, and decode-state management. The recurrences
+themselves are in :mod:`repro_torch.kernels.ops` (K6 and K7 on
+``backend="cuda"`` for a prefill, the plain recurrences on ``"torch"``; the
+single-token decode steps are torch ops on both, as they are XLA in the
+reference). The logical-sharding annotations drop out (one card, no mesh).
 
 Where the reference returns a new cache (with the cache donated to the
-step), the port writes ``last_x`` and the recurrent state into the
-preallocated cache in place and returns the same dict. Mamba comes with its
-slice (``ROADMAP.md``).
+step), the port writes the recurrent state (RWKV: ``last_x`` and
+``state``; Mamba: ``conv`` and ``h``) into the preallocated cache in place
+and returns the same dict.
 """
 from __future__ import annotations
 
@@ -188,5 +189,132 @@ def rwkv_cmix_apply(
     new_cache = None
     if mode in ("prefill", "decode"):
         cache["last_x"].copy_(x[:, -1])
+        new_cache = cache
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 (Jamba flavour: RMSNorm on dt/B/C)
+# ---------------------------------------------------------------------------
+
+
+def _dt_rank(cfg: ModelConfig) -> int:
+    return cfg.ssm.dt_rank or max(1, cfg.d_model // 16)
+
+
+def mamba_init(gen: torch.Generator, cfg: ModelConfig, *, device=None
+               ) -> nn.ParameterDict:
+    D = cfg.d_model
+    s = cfg.ssm
+    Din = s.expand * D
+    N = s.d_state
+    dt_rank = _dt_rank(cfg)
+    kw = dict(dtype=getattr(torch, cfg.param_dtype), device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    # S4D-real init for A; dt bias init so softplus(dt_bias) in [1e-3, 1e-1]
+    A = torch.arange(1, N + 1, **f32).expand(Din, N)
+    u = torch.empty((Din,), **f32).uniform_(math.log(1e-3), math.log(1e-1),
+                                            generator=gen)
+    dt_init = torch.exp(u)
+    dt_bias = dt_init + torch.log1p(-torch.exp(-dt_init))     # inv softplus
+    p = {
+        "in_proj": dense_init(gen, D, 2 * Din, **kw),
+        "conv_w": trunc_normal(gen, (s.d_conv, Din),
+                               std=1.0 / math.sqrt(s.d_conv), **kw),
+        "conv_b": zeros((Din,), **kw),
+        "x_proj": dense_init(gen, Din, dt_rank + 2 * N, **kw),
+        "dt_proj": dense_init(gen, dt_rank, Din, std=dt_rank ** -0.5, **kw),
+        # float32 whatever param_dtype is, as in the reference
+        "dt_bias": dt_bias,
+        "A_log": torch.log(A),
+        "D": ones((Din,), **f32),
+        "out_proj": dense_init(gen, Din, D,
+                               std=1.0 / math.sqrt(2 * cfg.num_layers * Din),
+                               **kw),
+        "norm_dt": ones((dt_rank,), **kw),
+        "norm_B": ones((N,), **kw),
+        "norm_C": ones((N,), **kw),
+    }
+    return nn.ParameterDict({k: param(v) for k, v in p.items()})
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 prev: Optional[torch.Tensor]) -> torch.Tensor:
+    """Depthwise causal conv1d. x: (B,S,Din), w: (k,Din), prev: (B,k-1,Din).
+
+    A sum of ``k`` shifted products in x's dtype, as the reference writes
+    it (not ``F.conv1d``: cuDNN runs float32 convolutions in TF32 by
+    default)."""
+    kk = w.shape[0]
+    if prev is None:
+        prev = torch.zeros((x.shape[0], kk - 1, x.shape[2]), dtype=x.dtype,
+                           device=x.device)
+    xp = torch.cat([prev.to(x.dtype), x], dim=1)           # (B,S+k-1,Din)
+    out = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(kk))
+    return out + b
+
+
+def mamba_apply(
+    p: nn.ParameterDict,
+    x: torch.Tensor,               # (B, S, D)
+    *,
+    cfg: ModelConfig,
+    mode: str = "train",
+    cache: Cache = None,           # {"conv": (B,k-1,Din), "h": (B,Din,N)}
+    backend: str = "cuda",
+) -> Tuple[torch.Tensor, Cache]:
+    """Mamba-1 mixer. The inner norms of dt, B and C are RMSNorm through
+    :func:`ops.rmsnorm` (K5 on ``backend="cuda"``); softplus is
+    ``logaddexp(x, 0)``, as ``jax.nn.softplus`` is (``F.softplus`` returns
+    x above 20). In ``prefill`` and ``decode`` the last ``k - 1`` inputs of
+    the convolution and the final state are written into ``cache`` in
+    place, and the same dict is returned."""
+    B, S, D = x.shape
+    s = cfg.ssm
+    Din = s.expand * D
+    N = s.d_state
+    dt_rank = _dt_rank(cfg)
+    eps = cfg.norm_eps
+
+    xz = x @ p["in_proj"]
+    xin, z = xz.chunk(2, dim=-1)
+    prev_conv = cache["conv"] if cache else None
+    xc = F.silu(_causal_conv(xin, p["conv_w"], p["conv_b"], prev_conv))
+
+    proj = xc @ p["x_proj"]                                  # (B,S,r+2N)
+    # K5's wrapper takes contiguous rows only: the slices are copied
+    dt_low = ops.rmsnorm(proj[..., :dt_rank].contiguous(), p["norm_dt"],
+                         eps, backend=backend)
+    Bm = ops.rmsnorm(proj[..., dt_rank:dt_rank + N].contiguous(),
+                     p["norm_B"], eps, backend=backend)
+    C = ops.rmsnorm(proj[..., dt_rank + N:].contiguous(), p["norm_C"], eps,
+                    backend=backend)
+    dt_raw = dt_low @ p["dt_proj"] + p["dt_bias"].to(x.dtype)
+    dt = torch.logaddexp(dt_raw, dt_raw.new_zeros(()))
+    A = -torch.exp(p["A_log"])
+
+    h0 = cache["h"] if cache else None
+    if mode == "decode":
+        if S != 1 or cache is None:
+            raise ValueError(f"decode takes one token and a cache, got "
+                             f"S={S} and cache={cache is not None}")
+        y, h_out = ops.mamba_decode(xc, dt, A, Bm, C, p["D"], h0,
+                                    backend=backend)
+    else:
+        y, h_out = ops.mamba_scan(xc, dt, A, Bm, C, p["D"], h0,
+                                  backend=backend)
+    out = (y * F.silu(z)) @ p["out_proj"]
+
+    new_cache = None
+    if mode in ("prefill", "decode"):
+        kk = p["conv_w"].shape[0]
+        if mode == "decode":
+            conv_new = torch.cat([prev_conv[:, 1:].to(xin.dtype), xin], dim=1)
+        else:
+            pad = torch.zeros((B, kk - 1, Din), dtype=xin.dtype,
+                              device=xin.device)
+            conv_new = torch.cat([pad, xin], dim=1)[:, -(kk - 1):]
+        cache["conv"].copy_(conv_new)
+        cache["h"].copy_(h_out)
         new_cache = cache
     return out, new_cache

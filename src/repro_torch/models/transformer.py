@@ -1,15 +1,16 @@
 """Model assembly: the decoder-only transformer, serving subset.
 
-The counterpart of ``repro.models.transformer`` for stacks whose every
-layer is GQA attention + dense MLP with RMSNorm and RoPE (``qwen2-7b``,
-``stablelm-12b``, ``starcoder2-15b``), or RWKV-6 time mix + channel mix
-with LayerNorm and ``ln0`` (``rwkv6-3b``). The reference stacks each
-period slot's parameters ``(n_periods, ...)`` and runs the depth as one
-``lax.scan``; here each layer is a block in an ``nn.ModuleList`` walked by
-a Python loop, and the logical-sharding annotations drop out (one card,
-no mesh). Layers the port lacks -- MLA, MoE, the Mamba mixer, cross
-attention, M-RoPE, learned positions, the vision frontend, MTP -- are
-refused when the model is built (:func:`check_supported`).
+The counterpart of ``repro.models.transformer`` for stacks whose layers
+are GQA attention (RoPE or none) or the Mamba mixer, each followed by a
+dense MLP or a dropless MoE, with RMSNorm (``qwen2-7b``, ``stablelm-12b``,
+``starcoder2-15b``, ``mixtral-8x7b``, ``jamba-v0.1-52b``), or RWKV-6 time
+mix + channel mix with LayerNorm and ``ln0`` (``rwkv6-3b``). The reference
+stacks each period slot's parameters ``(n_periods, ...)`` and runs the
+depth as one ``lax.scan``; here each layer is a block in an
+``nn.ModuleList`` walked by a Python loop, and the logical-sharding
+annotations drop out (one card, no mesh). Layers the port lacks -- MLA,
+cross attention, M-RoPE, learned positions, the vision frontend, MTP --
+are refused when the model is built (:func:`check_supported`).
 
 Modes:
   * ``train``   -- full causal pass, logits, no cache (losses come with
@@ -18,8 +19,8 @@ Modes:
   * ``decode``  -- one new token against the cache (S == 1).
 
 The cache is a list with one dict per layer, written in place:
-``{"attn": {"k", "v"}}`` for GQA, ``{"attn": {"last_x", "state"},
-"mlp": {"last_x"}}`` for RWKV-6.
+``{"attn": {"k", "v"}}`` for GQA, ``{"attn": {"conv", "h"}}`` for Mamba,
+``{"attn": {"last_x", "state"}, "mlp": {"last_x"}}`` for RWKV-6.
 """
 from __future__ import annotations
 
@@ -105,6 +106,9 @@ def layer_layout(cfg: ModelConfig) -> Tuple[int, List[LayerKind], int]:
 
 
 SUPPORTED_KINDS = (LayerKind("gqa", "dense", False),
+                   LayerKind("gqa", "moe", False),
+                   LayerKind("mamba", "dense", False),
+                   LayerKind("mamba", "moe", False),
                    LayerKind("rwkv", "cmix", False))
 
 
@@ -128,8 +132,9 @@ def check_supported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet; the port "
-            f"serves GQA + dense-MLP decoders and RWKV-6 (ROADMAP.md, "
-            f"Queue 1, lists what comes next)")
+            f"serves decoders of GQA or Mamba layers with dense or MoE "
+            f"MLPs, and RWKV-6 (ROADMAP.md, Queue 1, lists what comes "
+            f"next)")
 
 
 # ---------------------------------------------------------------------------
@@ -174,11 +179,17 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: LayerKind, *,
          "norm2": _norm_init(cfg, b, device=device)}
     if kind.mixer == "rwkv":
         p["mixer"] = ssmm.rwkv_tmix_init(gen, cfg, device=device)
+    elif kind.mixer == "mamba":
+        p["mixer"] = ssmm.mamba_init(gen, cfg, device=device)
+    else:
+        p["mixer"] = attn.gqa_init(gen, cfg, device=device)
+    if kind.mlp == "cmix":
         p["mlp"] = ssmm.rwkv_cmix_init(gen, cfg, device=device)
+    elif kind.mlp == "moe":
+        p["mlp"] = mlpm.moe_init(gen, cfg, device=device)
     else:
         d_ff = cfg.moe.d_ff_dense if (cfg.moe and cfg.moe.d_ff_dense) \
             else cfg.d_ff
-        p["mixer"] = attn.gqa_init(gen, cfg, device=device)
         p["mlp"] = mlpm.mlp_init(gen, cfg, d_ff=d_ff, device=device)
     return nn.ModuleDict(p)
 
@@ -199,6 +210,16 @@ def block_cache(cfg: ModelConfig, kind: LayerKind, batch: int, max_len: int,
                                               dtype=torch.float32,
                                               device=device)},
                 "mlp": {"last_x": last_x()}}
+    if kind.mixer == "mamba":
+        # the last d_conv - 1 inputs of the convolution; the (Din, N) state
+        s = cfg.ssm
+        Din = s.expand * cfg.d_model
+        dt = getattr(torch, cfg.dtype)
+        return {"attn": {
+            "conv": torch.zeros((batch, s.d_conv - 1, Din), dtype=dt,
+                                device=device),
+            "h": torch.zeros((batch, Din, s.d_state), dtype=torch.float32,
+                             device=device)}}
     return {"attn": attn.gqa_init_cache(cfg, batch, max_len, device=device)}
 
 
@@ -217,12 +238,17 @@ def block_apply(
     backend: str = "cuda",
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Returns (x_out, new_cache). ``kv_len`` and ``pos0`` are unused by
-    RWKV layers, as in the reference."""
+    RWKV and Mamba layers, as in the reference. The MoE's aux loss is
+    dropped: serving has no use for it."""
     eps = cfg.norm_eps
     new_cache: Dict[str, Any] = {}
     h = _norm(p["norm1"], x, eps, backend=backend)
     if kind.mixer == "rwkv":
         out, nc = ssmm.rwkv_tmix_apply(
+            p["mixer"], h, cfg=cfg, mode=mode,
+            cache=cache["attn"] if cache else None, backend=backend)
+    elif kind.mixer == "mamba":
+        out, nc = ssmm.mamba_apply(
             p["mixer"], h, cfg=cfg, mode=mode,
             cache=cache["attn"] if cache else None, backend=backend)
     else:
@@ -239,6 +265,8 @@ def block_apply(
                                        cache=cache["mlp"] if cache else None)
         if nc is not None:
             new_cache["mlp"] = nc
+    elif kind.mlp == "moe":
+        out, _ = mlpm.moe_apply(p["mlp"], h2, cfg=cfg)
     else:
         out = mlpm.mlp_apply(p["mlp"], h2, cfg=cfg)
     x = x + out

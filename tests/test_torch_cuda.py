@@ -200,7 +200,7 @@ def test_torch_cuda_smoke_generate_matches_torch_backend(card):
                     max_new_tokens=6)
     assert MK.launch_counts() == {"flash_attention": cfg.num_layers,
                                   "rmsnorm": (2 * cfg.num_layers + 1) * 7,
-                                  "wkv6": 0}
+                                  "wkv6": 0, "mamba_scan": 0}
     b, _ = generate(arch="qwen2-7b", prompt_tokens=prompts, model=model,
                     max_new_tokens=6, backend="torch")
     assert torch.equal(a, b)
@@ -302,9 +302,105 @@ def test_torch_cuda_smoke_rwkv_generate_matches_torch_backend(card):
     a, _ = generate(arch="rwkv6-3b", prompt_tokens=prompts, model=model,
                     max_new_tokens=6)
     assert MK.launch_counts() == {"flash_attention": 0, "rmsnorm": 0,
-                                  "wkv6": cfg.num_layers}
+                                  "wkv6": cfg.num_layers, "mamba_scan": 0}
     b, _ = generate(arch="rwkv6-3b", prompt_tokens=prompts, model=model,
                     max_new_tokens=6, backend="torch")
+    assert torch.equal(a, b)
+
+
+# K7 (the Mamba selective scan) within 2e-4 of its plain version in
+# float32 and 2e-2 in bfloat16, y and the final state
+# (tests/test_kernels.py's), over chip_smoke.py's cases and inputs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SMOKE.MAMBA_CASES, ids=lambda c: c[0])
+def test_torch_cuda_mamba_scan_matches_plain_version(card, dtype, case):
+    from repro_torch.kernels import cuda_kernels as MK
+    from repro_torch.kernels.mamba_scan import mamba_scan, plain
+    _, shape, h0, dt_range = case
+    args = SMOKE.mamba_inputs(shape, h0, dt_range, dtype, seed=shape[1])
+    before = MK.launch_counts()["mamba_scan"]
+    y, h = mamba_scan(*args)
+    torch.cuda.synchronize()
+    assert MK.launch_counts()["mamba_scan"] == before + 1
+    assert y.dtype == dtype and h.dtype == torch.float32
+    y_want, h_want = plain(*args)
+    t = 2e-2 if dtype == torch.bfloat16 else 2e-4
+    torch.testing.assert_close(y.float(), y_want.float(), rtol=t, atol=t)
+    torch.testing.assert_close(h, h_want, rtol=t, atol=t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_torch_cuda_mamba_scan_reads_strided_views(card, dtype):
+    """x, dt, B and C as views into wider tensors (the slices of a
+    projection), offset by one element; Din not a multiple of the block."""
+    from repro_torch.kernels.mamba_scan import mamba_scan, plain
+    B, S, Din, N = 2, 70, 200, 16
+    x, dt, A, Bm, C, D, h0 = SMOKE.mamba_inputs((B, S, Din + 3, N + 1),
+                                                "given", None, dtype, seed=5)
+    x, dt = x[..., 1:Din + 1], dt[..., 1:Din + 1]
+    Bm, C = Bm[..., 1:], C[..., 1:]
+    A, D = A[:Din, :N].contiguous(), D[:Din].contiguous()
+    h0 = h0[:, :Din, :N].contiguous()
+    for t in (x, dt, Bm, C):
+        assert t.stride(-1) == 1 and not t.is_contiguous()
+    y, h = mamba_scan(x, dt, A, Bm, C, D, h0)
+    y_want, h_want = plain(x, dt, A, Bm, C, D, h0)
+    t = 2e-2 if dtype == torch.bfloat16 else 2e-4
+    torch.testing.assert_close(y.float(), y_want.float(), rtol=t, atol=t)
+    torch.testing.assert_close(h, h_want, rtol=t, atol=t)
+
+
+def test_torch_cuda_mamba_scan_wrapper_refuses_what_the_kernel_does_not_take(
+        card):
+    from repro_torch.kernels import cuda_kernels as MK
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    before = MK.launch_counts()["mamba_scan"]
+    x, dt, A, Bm, C, D, h0 = SMOKE.mamba_inputs((1, 8, 64, 4), "given", None,
+                                                torch.float32, seed=0)
+    with pytest.raises(ValueError, match="state dim N = 4"):
+        mamba_scan(x, dt, A, Bm, C, D, h0)
+    x, dt, A, Bm, C, D, h0 = SMOKE.mamba_inputs((1, 8, 64, 8), "given", None,
+                                                torch.float32, seed=0)
+    with pytest.raises(ValueError, match="float32 or torch.bfloat16"):
+        mamba_scan(x.half(), dt.half(), A, Bm.half(), C.half(), D, h0)
+    with pytest.raises(ValueError, match="A must be torch.float32"):
+        mamba_scan(x, dt, A.bfloat16(), Bm, C, D, h0)
+    with pytest.raises(ValueError, match="last dimension must be contiguous"):
+        mamba_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A, Bm,
+                   C, D, h0)
+    with pytest.raises(ValueError, match="h0 must be a contiguous"):
+        mamba_scan(x, dt, A, Bm, C, D, h0.transpose(1, 2))
+    assert MK.launch_counts()["mamba_scan"] == before
+
+
+def test_torch_cuda_smoke_jamba_generate_matches_torch_backend(card):
+    """The Jamba serving path on the card with K4, K5 and K7, float32 smoke
+    model at the full model's layout (8 layers, attention on layer 4):
+    one K7 launch per Mamba layer and one K4 launch per attention layer in
+    the prefill, none of either in the decode steps, and the same greedy
+    tokens as the plain versions."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.kernels import cuda_kernels as MK
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.api import build_model
+    cfg = get_model_config("jamba-v0.1-52b", smoke=True).replace(
+        dtype="float32", param_dtype="float32", num_layers=8, attn_period=8,
+        attn_offset=4)
+    model = build_model(cfg)
+    model.init(0)
+    prompts = np.random.default_rng(0).integers(0, 512, size=(2, 40))
+    MK.reset_launch_counts()
+    a, _ = generate(arch="jamba-v0.1-52b", prompt_tokens=prompts,
+                    model=model, max_new_tokens=6)
+    per_prefill, per_step = SMOKE.expected_launches(cfg, "jamba-v0.1-52b")
+    assert per_prefill["flash_attention"] == 1
+    assert per_prefill["mamba_scan"] == 7
+    assert MK.launch_counts() == {k: per_prefill[k] + 6 * per_step[k]
+                                  for k in per_prefill}
+    b, _ = generate(arch="jamba-v0.1-52b", prompt_tokens=prompts,
+                    model=model, max_new_tokens=6, backend="torch")
     assert torch.equal(a, b)
 
 

@@ -34,6 +34,7 @@ def test_torch_port_has_the_expected_files():
                  "src/repro_torch/kernels/flash_attention.py",
                  "src/repro_torch/kernels/rmsnorm.py",
                  "src/repro_torch/kernels/wkv6.py",
+                 "src/repro_torch/kernels/mamba_scan.py",
                  "src/repro_torch/kernels/cuda_kernels.py",
                  "src/repro_torch/kernels/ops.py",
                  "src/repro_torch/models/params.py",

@@ -73,7 +73,8 @@ def test_torch_cuda_backend_refuses_cpu_tensors():
         ops.rmsnorm(x, torch.ones(32), backend="triton")
     assert cuda_kernels.launch_counts() == before == {"flash_attention": 0,
                                                       "rmsnorm": 0,
-                                                      "wkv6": 0}
+                                                      "wkv6": 0,
+                                                      "mamba_scan": 0}
 
 
 def test_torch_generate_refuses_what_the_slice_lacks():
@@ -82,7 +83,7 @@ def test_torch_generate_refuses_what_the_slice_lacks():
         serve.generate(arch="seamless-m4t-large-v2", prompt_tokens=prompts,
                        device="cpu", backend="torch")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        serve.generate(arch="mixtral-8x7b", prompt_tokens=prompts,
+        serve.generate(arch="minicpm3-4b", prompt_tokens=prompts,
                        device="cpu", backend="torch")
     model = serve.build_model(get_model_config("stablelm-12b", smoke=True),
                               device="cpu")

@@ -1,6 +1,7 @@
 """Build, binding and launch counts of the model substrate's CUDA kernels.
 
-``csrc/model_kernels.cu`` holds K4 (flash-attention forward), K5
+``csrc/model_kernels.cu`` holds K4 (flash-attention forward: a
+tensor-core kernel for bfloat16 and a CUDA-core one for float32), K5
 (RMSNorm), K6 (the RWKV-6 recurrence) and K7 (the Mamba-1 selective
 scan). :mod:`repro_torch._nvcc`
 compiles it at first use into ``build/repro_torch/`` and ``ctypes`` loads
@@ -32,6 +33,8 @@ LIBRARY = _nvcc.NvccLibrary(SOURCE, NVCC_FLAGS, "model_kernels")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
+# K4's two kernels, as model_flash_attention_fwd numbers them
+FLASH_KERNELS = {"flash_fwd_kernel": 0, "flash_fwd_wgmma_kernel": 1}
 WKV_KEY_DIMS = (8, 16, 32, 64)      # K6 is built for these K
 WKV_MAX_V = 1024
 MAMBA_STATE_DIMS = (8, 16)          # K7 is built for these N
@@ -67,6 +70,8 @@ def _library() -> ctypes.CDLL:
         lib.model_mamba_scan_fwd.argtypes = [p] * 9 + [i] * 5 + [ll] * 8 \
             + [p]
         lib.model_mamba_scan_fwd.restype = i
+        lib.model_flash_wgmma_smem_bytes.argtypes = [i]
+        lib.model_flash_wgmma_smem_bytes.restype = i
         lib.model_error_string.argtypes = [i]
         lib.model_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -82,9 +87,10 @@ def _check(name: str, lib, code: int) -> None:
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        out: torch.Tensor, *, scale: float, causal: bool,
-                        window: int, q_offset: int) -> None:
-    """Launch K4 writing ``out`` (B, Sq, H, D), contiguous."""
+                        out: torch.Tensor, *, kernel: str, scale: float,
+                        causal: bool, window: int, q_offset: int) -> None:
+    """Launch K4's ``kernel`` (a key of :data:`FLASH_KERNELS`) writing
+    ``out`` (B, Sq, H, D), contiguous."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     lib = _library()
@@ -92,10 +98,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         code = lib.model_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            DTYPE_CODES[q.dtype], B, Sq, Sk, H, KV, D, *strides,
+            FLASH_KERNELS[kernel], B, Sq, Sk, H, KV, D, *strides,
             float(scale), int(bool(causal)), int(window), int(q_offset),
             torch.cuda.current_stream(q.device).cuda_stream)
     _check("flash_attention", lib, code)
+
+
+def flash_wgmma_smem_bytes(D: int) -> int:
+    """Dynamic shared memory of ``flash_fwd_wgmma_kernel`` at head dim D."""
+    return int(_library().model_flash_wgmma_smem_bytes(D))
 
 
 def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, out: torch.Tensor,

@@ -1,10 +1,23 @@
 """K4, flash-attention forward (causal / GQA / sliding window), in CUDA C++.
 
 Replaces the Pallas TPU kernel ``repro.kernels.flash_attention._flash_kernel``
-(wrapper ``flash_attention``). The kernel is ``flash_fwd_kernel`` in
-``repro_torch/csrc/model_kernels.cu``; its note says what bounds it on the
-card and how its design answers that. Its plain PyTorch version is
-:func:`plain` (``repro_torch.kernels.ref.attention``), its launch count is
+(wrapper ``flash_attention``). Two kernels in
+``repro_torch/csrc/model_kernels.cu``, one per dtype, picked by
+:func:`select_kernel`:
+
+- ``torch.bfloat16``: ``flash_fwd_wgmma_kernel``, on the tensor cores
+  (``wgmma`` on tiles that TMA copies into shared memory). TMA needs every
+  base address, and every stride of a dimension longer than 1, to be a
+  multiple of 16 bytes; a bfloat16 input that is not is refused with
+  ``ValueError``, never sent another way. The prefill's q, k and v, and
+  slices of one fused (B, S, 2 KV, D) tensor, always qualify.
+- ``torch.float32``: ``flash_fwd_kernel``, float32 FMAs on the CUDA cores:
+  the 2e-5 float32 tolerance rules out TF32, the tensor cores' only
+  float32 path.
+
+Their notes in the source say what bounds each on the card and how its
+design answers that. The plain PyTorch version is :func:`plain`
+(``repro_torch.kernels.ref.attention``); both kernels count under
 ``cuda_kernels.launch_counts()["flash_attention"]``.
 
 Public layout as in the reference: q ``(B, Sq, H, D)``, k and v
@@ -19,7 +32,37 @@ import torch
 from repro_torch.kernels import cuda_kernels
 from repro_torch.kernels.ref import attention as plain
 
-MAX_GRID_Y = 65535                  # B * H blocks along the grid's y axis
+MAX_GRID_Y = 65535                  # blocks along a grid's y axis
+WGMMA_BQ = 128                      # query rows per block of the bf16 kernel
+TMA_ALIGN = 16                      # bytes, of TMA's base addresses and strides
+
+
+def select_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The K4 kernel for these inputs, by dtype: ``"flash_fwd_wgmma_kernel"``
+    for bfloat16, ``"flash_fwd_kernel"`` for float32. Raises ``ValueError``
+    for a bfloat16 input whose base address, or the stride of a dimension
+    longer than 1, is not a multiple of 16 bytes (TMA cannot read it), and
+    for any other dtype. Reads only dtypes, pointers, shapes and strides, so
+    it runs on CPU tensors as well."""
+    if q.dtype == torch.float32:
+        return "flash_fwd_kernel"
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention takes torch.float32 or "
+                         f"torch.bfloat16, got {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        size = t.element_size()
+        if t.data_ptr() % TMA_ALIGN:
+            raise ValueError(
+                f"flash_attention: {name}'s base address is not a multiple "
+                f"of {TMA_ALIGN} bytes, which the bfloat16 kernel's TMA "
+                f"copies need (offset {t.data_ptr() % TMA_ALIGN})")
+        for dim, (n, st) in enumerate(zip(t.shape[:3], t.stride()[:3])):
+            if n > 1 and (st * size) % TMA_ALIGN:
+                raise ValueError(
+                    f"flash_attention: {name}'s stride {st} along dimension "
+                    f"{dim} is not a multiple of {TMA_ALIGN} bytes, which "
+                    f"the bfloat16 kernel's TMA copies need")
+    return "flash_fwd_wgmma_kernel"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -47,9 +90,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if D not in cuda_kernels.HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {D} not in "
                          f"{cuda_kernels.HEAD_DIMS}")
-    if B * H > MAX_GRID_Y:
-        raise ValueError(f"flash_attention: B * H = {B * H} exceeds "
-                         f"{MAX_GRID_Y}")
 
 
 def flash_attention(
@@ -74,10 +114,18 @@ def flash_attention(
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got "
                          f"{q.device}")
     _check(q, k, v)
+    kernel = select_kernel(q, k, v)
+    # the grid's y axis: B * H blocks (float32 kernel) or the q tiles
+    # (bfloat16 kernel)
+    B, Sq, H, _ = q.shape
+    n_y = B * H if kernel == "flash_fwd_kernel" else -(-Sq // WGMMA_BQ)
+    if n_y > MAX_GRID_Y:
+        raise ValueError(f"flash_attention: {n_y} blocks along the grid's y "
+                         f"axis exceed {MAX_GRID_Y}")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    cuda_kernels.flash_attention_fwd(q, k, v, out, scale=scale,
-                                     causal=causal, window=window,
-                                     q_offset=q_offset)
+    cuda_kernels.flash_attention_fwd(q, k, v, out, kernel=kernel,
+                                     scale=scale, causal=causal,
+                                     window=window, q_offset=q_offset)
     return out

@@ -114,31 +114,60 @@ def test_torch_cuda_bare_run_launches_the_kernels_on_the_card(card):
     assert CK.launch_counts()["segment_overlap"] == 2 * 2 * 10
 
 
+def _load_chip_smoke():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+# K6 (the WKV6 recurrence) within 2e-4 of its plain version in float32
+# and 2e-2 in bfloat16, y and the final state (tests/test_kernels.py's),
+# over chip_smoke.py's cases and inputs
+SMOKE = _load_chip_smoke()
+REAL = SMOKE.REAL
+
+
+SMOKE = _load_chip_smoke()
+
+
 # -- the model substrate's kernels (K4 flash attention, K5 RMSNorm) ---------
 #
 # Held to their plain versions in kernels/ref.py: attention 2e-5 in float32
 # and 2e-2 in bfloat16 (the JAX package's own tolerances); RMSNorm within
 # 2 ulp relative in float32 and 1 ulp in bfloat16 (both round the float64
 # mean of squares once to float32 and then make the same correctly rounded
-# operations, so they are expected to agree bit for bit).
+# operations, so they are expected to agree bit for bit). K4 runs
+# flash_fwd_wgmma_kernel for bfloat16 and flash_fwd_kernel for float32.
 
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", [
-    # (B, Sq, Sk, H, KV, D, causal, window, q_offset)
+# (B, Sq, Sk, H, KV, D, causal, window, q_offset), then chip_smoke.py's
+# cases (the served shapes among them)
+ATTN_CASES = [
     (2, 100, 100, 4, 2, 32, True, 0, 0),
     (1, 64, 200, 7, 1, 64, True, 0, 136),
     (1, 130, 130, 2, 2, 128, True, 48, 0),
     (2, 70, 90, 4, 4, 64, False, 0, 0),
-], ids=str)
+] + [(B, Sq, Sk, H, KV, D, causal, window, q_off)
+     for _, (B, Sq, Sk, H, KV, D), causal, window, q_off in SMOKE.ATTN_CASES]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTN_CASES, ids=str)
 def test_torch_cuda_flash_attention_matches_plain_version(card, dtype, case):
     from repro_torch.kernels import cuda_kernels as MK
-    from repro_torch.kernels.flash_attention import flash_attention, plain
+    from repro_torch.kernels.flash_attention import (flash_attention, plain,
+                                                     select_kernel)
     B, Sq, Sk, H, KV, D, causal, window, q_off = case
     gen = torch.Generator(device=card).manual_seed(sum(case[:6]))
     q = torch.randn(B, Sq, H, D, generator=gen, device=card).to(dtype)
     k = torch.randn(B, Sk, KV, D, generator=gen, device=card).to(dtype)
     v = torch.randn(B, Sk, KV, D, generator=gen, device=card).to(dtype)
+    assert select_kernel(q, k, v) == ("flash_fwd_wgmma_kernel"
+                                      if dtype == torch.bfloat16
+                                      else "flash_fwd_kernel")
     before = MK.launch_counts()["flash_attention"]
     got = flash_attention(q, k, v, causal=causal, window=window,
                           q_offset=q_off)
@@ -149,9 +178,51 @@ def test_torch_cuda_flash_attention_matches_plain_version(card, dtype, case):
     torch.testing.assert_close(got.float(), want.float(), rtol=t, atol=t)
 
 
+def test_torch_cuda_flash_attention_reads_fused_kv_slices(card):
+    """k and v as slices of one (B, S, 2 KV, D) tensor: strided, with
+    16-byte strides and base addresses, so the bfloat16 kernel takes
+    them."""
+    from repro_torch.kernels import cuda_kernels as MK
+    from repro_torch.kernels.flash_attention import (flash_attention, plain,
+                                                     select_kernel)
+    B, S, H, KV, D = 2, 300, 28, 4, 128
+    gen = torch.Generator(device=card).manual_seed(3)
+    q = torch.randn(B, S, H, D, generator=gen, device=card).bfloat16()
+    kv = torch.randn(B, S, 2 * KV, D, generator=gen, device=card).bfloat16()
+    k, v = kv[:, :, :KV], kv[:, :, KV:]
+    assert not k.is_contiguous()
+    assert select_kernel(q, k, v) == "flash_fwd_wgmma_kernel"
+    before = MK.launch_counts()["flash_attention"]
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert MK.launch_counts()["flash_attention"] == before + 1
+    torch.testing.assert_close(got.float(), plain(q, k, v).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_torch_cuda_flash_attention_refuses_misaligned_bfloat16(card):
+    """TMA reads 16-byte aligned bases only: a bfloat16 q two bytes off is
+    refused, and nothing is launched."""
+    from repro_torch.kernels import cuda_kernels as MK
+    from repro_torch.kernels.flash_attention import flash_attention
+    B, S, H, D = 1, 64, 4, 64
+    flat = torch.randn(B * S * H * D + 1, device=card).bfloat16()
+    q = flat[1:].view(B, S, H, D)
+    k = torch.randn(B, S, H, D, device=card).bfloat16()
+    before = MK.launch_counts()["flash_attention"]
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        flash_attention(q, k, k)
+    assert MK.launch_counts()["flash_attention"] == before
+
+
+# the served rows (Qwen2 3584, Jamba 4096 and its inner norms 256 and 16),
+# rows walked twice (8192; 12289 also unaligned), and a scalar row (100)
+NORM_SHAPES = [(33, 3584), (4, 3584), (5, 7, 128), (3, 100), (3, 12289),
+               (5, 4096), (9, 256), (9, 16), (7, 8192)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(33, 3584), (4, 3584), (5, 7, 128),
-                                   (3, 100), (3, 12289)], ids=str)
+@pytest.mark.parametrize("shape", NORM_SHAPES, ids=str)
 def test_torch_cuda_rmsnorm_matches_plain_version(card, dtype, shape):
     from repro_torch.kernels import cuda_kernels as MK
     from repro_torch.kernels.rmsnorm import plain, rmsnorm
@@ -167,6 +238,8 @@ def test_torch_cuda_rmsnorm_matches_plain_version(card, dtype, shape):
     ulps = 1 if dtype == torch.bfloat16 else 2
     bound = ulps * torch.finfo(dtype).eps * want.float().abs()
     assert bool(((got.float() - want.float()).abs() <= bound).all())
+    # and, as expected, the same bits
+    assert torch.equal(got, want)
 
 
 def test_torch_cuda_model_wrappers_refuse_what_the_kernels_do_not_take(card):
@@ -206,20 +279,9 @@ def test_torch_cuda_smoke_generate_matches_torch_backend(card):
     assert torch.equal(a, b)
 
 
-def _load_chip_smoke():
-    import importlib.util
-    import pathlib
-    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    return smoke
-
-
 # K6 (the WKV6 recurrence) within 2e-4 of its plain version in float32
 # and 2e-2 in bfloat16, y and the final state (tests/test_kernels.py's),
 # over chip_smoke.py's cases and inputs
-SMOKE = _load_chip_smoke()
 REAL = SMOKE.REAL
 
 

@@ -1,0 +1,146 @@
+"""The kernel names that ``chip_smoke.py`` reads, and K4's dtype rule,
+checked without a card.
+
+``chip_smoke.py`` reads the profiler's device time by kernel symbol
+(``KERNEL_SYMBOLS`` for the served models, the last-but-one argument of
+each ``entry`` call in its kernel tables): a symbol that no kernel has
+quietly reads ``None`` or 0. So every such symbol must be a ``__global__``
+function of the port's CUDA sources. K4's wrapper picks its kernel by a
+rule on dtypes, pointers and strides alone, so the rule runs here on CPU
+tensors.
+"""
+import ast
+import importlib.util
+import pathlib
+import re
+
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as FA
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+CSRC = ROOT / "src" / "repro_torch" / "csrc"
+
+
+def _load_chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+SMOKE = _load_chip_smoke()
+
+
+def _global_functions():
+    names = set()
+    for src in ("model_kernels.cu", "fabric_kernels.cu"):
+        text = (CSRC / src).read_text()
+        names |= set(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+            text))
+    return names
+
+
+def _profiled_symbols():
+    """Every string the symbol argument (the eighth, or ``symbol=``) of an
+    ``entry(...)`` call in the kernel tables of ``chip_smoke.py`` can
+    take."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    out = set()
+    for fn in ast.walk(tree):
+        if isinstance(fn, ast.FunctionDef) and fn.name in (
+                "kernel_table", "model_kernel_table"):
+            for call in ast.walk(fn):
+                if isinstance(call, ast.Call) and \
+                        getattr(call.func, "id", None) == "entry":
+                    kw = {k.arg: k.value for k in call.keywords}
+                    sym = call.args[7] if len(call.args) > 7 else \
+                        kw["symbol"]
+                    out |= _values(sym)
+    return out
+
+
+def _values(node):
+    """The strings a constant or a conditional of constants can take."""
+    if isinstance(node, ast.IfExp):
+        return _values(node.body) | _values(node.orelse)
+    assert isinstance(node, ast.Constant), ast.dump(node)
+    return {node.value}
+
+
+def test_torch_kernel_symbols_sources_have_the_kernels():
+    names = _global_functions()
+    assert {"flash_fwd_kernel", "flash_fwd_wgmma_kernel",
+            "rmsnorm_warp_kernel", "wkv6_fwd_kernel",
+            "mamba_scan_fwd_kernel"} <= names
+    # the PR 12 RMSNorm kernel is gone: nothing may still profile it
+    assert "rmsnorm_kernel" not in names
+
+
+@pytest.mark.parametrize("key", sorted(SMOKE.KERNEL_SYMBOLS))
+def test_torch_kernel_symbols_served_kernels_exist(key):
+    syms = SMOKE.KERNEL_SYMBOLS[key]
+    assert syms and all(s in _global_functions() for s in syms), syms
+
+
+def test_torch_kernel_symbols_profiled_kernels_exist():
+    syms = _profiled_symbols()
+    # K1, K2, K3; K4 and K5 at the served (bfloat16) shapes, K6, K7
+    assert syms == {"waterfill_kernel", "strict_priority_kernel",
+                    "segment_overlap_kernel", "flash_fwd_wgmma_kernel",
+                    "rmsnorm_warp_kernel", "wkv6_fwd_kernel",
+                    "mamba_scan_fwd_kernel"}
+    assert syms <= _global_functions()
+    assert set(SMOKE.HOPPER_KERNELS) <= _global_functions()
+
+
+def _qkv(dtype, B=2, S=64, H=8, KV=2, D=64):
+    gen = torch.Generator().manual_seed(0)
+    mk = lambda *s: torch.randn(*s, generator=gen).to(dtype)
+    return mk(B, S, H, D), mk(B, S, KV, D), mk(B, S, KV, D)
+
+
+def test_torch_kernel_symbols_k4_rule_picks_by_dtype():
+    assert FA.select_kernel(*_qkv(torch.bfloat16)) == \
+        "flash_fwd_wgmma_kernel"
+    assert FA.select_kernel(*_qkv(torch.float32)) == "flash_fwd_kernel"
+    # float32 has no alignment rule: strides TMA could not read are fine
+    q, k, v = _qkv(torch.float32, D=68)
+    assert FA.select_kernel(q[..., :64], k[..., :64], v[..., :64]) == \
+        "flash_fwd_kernel"
+    with pytest.raises(ValueError, match="float32 or torch.bfloat16"):
+        FA.select_kernel(*_qkv(torch.float16))
+
+
+def test_torch_kernel_symbols_k4_rule_takes_fused_kv_slices():
+    B, S, H, KV, D = 2, 64, 8, 2, 64
+    q = torch.zeros(B, S, H, D, dtype=torch.bfloat16)
+    kv = torch.zeros(B, S, 2 * KV, D, dtype=torch.bfloat16)
+    k, v = kv[:, :, :KV], kv[:, :, KV:]
+    assert not k.is_contiguous() and v.data_ptr() % 16 == 0
+    assert FA.select_kernel(q, k, v) == "flash_fwd_wgmma_kernel"
+
+
+def test_torch_kernel_symbols_k4_rule_refuses_what_tma_cannot_read():
+    q, k, v = _qkv(torch.bfloat16)
+    # a base address two bytes off
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)
+    assert flat.data_ptr() % 16 == 0
+    with pytest.raises(ValueError, match="base address"):
+        FA.select_kernel(flat[1:].view(q.shape), k, v)
+    # a sequence stride of 136 values (272 bytes) is fine, a head stride
+    # of 68 values (136 bytes) is not
+    wide = torch.zeros(2, 64, 2, 72, dtype=torch.bfloat16)
+    wide = wide.as_strided((2, 64, 2, 64), (64 * 2 * 68, 2 * 68 + 8, 68, 1))
+    with pytest.raises(ValueError, match="stride 68 along dimension 2"):
+        FA.select_kernel(q, wide, v)
+    # the stride of a dimension of size 1 is never read: any value goes
+    base = torch.zeros(2 * 64 * 64, dtype=torch.bfloat16)
+    one = base.as_strided((1, 64, 1, 64), (4096, 64, 3, 1))
+    assert FA.select_kernel(one, one, one) == "flash_fwd_wgmma_kernel"
+    two = base.as_strided((1, 64, 2, 64), (4096, 64, 3, 1))
+    with pytest.raises(ValueError, match="stride 3 along dimension 2"):
+        FA.select_kernel(two, two, two)

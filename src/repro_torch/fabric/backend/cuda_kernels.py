@@ -12,7 +12,9 @@ runner's per-step contention arithmetic:
   * the **busy-segment overlap reduction** — window-vs-segment clamped
     overlaps, summed left to right per row.
 
-Each is one thread per row (see the notes in the source). Bit-exactness
+The allocators are one thread per row; the overlap reduction stages
+tiles of 32 rows through shared memory and sums each row in one lane
+(see the notes in the source). Bit-exactness
 (the ``exact`` equivalence tier): the kernels compute each flow's *stable
 rank* by O(n²) comparison, which reproduces Python ``sorted``'s
 tie-breaking, then run the fill over rank positions with arithmetic that
@@ -49,6 +51,7 @@ import torch
 from repro_torch import _nvcc
 from repro_torch.fabric.backend import KernelType, register_kernel
 from repro_torch.fabric.backend.torch_kernels import (check_demands_launch,
+                                                      filled_slots,
                                                       priority_classes)
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "fabric_kernels.cu"
@@ -97,7 +100,8 @@ def _library() -> ctypes.CDLL:
             fn.argtypes = [p, p, p, dbl, p, ll, i, i, p]
             fn.restype = i
             fn = getattr(lib, f"fabric_segment_overlap_{sfx}")
-            fn.argtypes = [p, p, p, p, p, ll, i, ll, p]
+            fn.argtypes = [p, p, ll, ll, ll, ll, p, p, p, i, i, ll, i, p, ll,
+                           p]
             fn.restype = i
         lib.fabric_max_flows.restype = i
         lib.fabric_error_string.argtypes = [i]
@@ -308,14 +312,45 @@ def strict_priority_shares(demands, priorities, capacity=1.0, *,
     return out
 
 
+def _window(name: str, x, ref: torch.Tensor, batch, what: str
+            ) -> Tuple[torch.Tensor, int, int]:
+    """A window operand (``s_i`` or ``e_i``) as the overlap kernel reads
+    it: ``(tensor, rows_per, stride)`` with row r's value at
+    ``tensor[(r // rows_per) * stride]``. One window per group of rows
+    (the runner's ``(V, 1)`` column of its ``(V, J)`` windows) is read in
+    place through its stride; any other broadcast is expanded to one
+    value per row."""
+    x = _require_cuda(name, x, what)
+    if x.dtype != ref.dtype or x.device != ref.device:
+        raise ValueError(
+            f"cuda kernel {name!r}: {what} is {x.dtype} on {x.device}, "
+            f"expected {ref.dtype} on {ref.device}")
+    try:
+        aligned, rows_per, expand = _group_layout(tuple(x.shape), batch, ())
+    except ValueError as e:
+        raise ValueError(f"cuda kernel {name!r}: {what}: {e}") from None
+    if expand:
+        return x.reshape(aligned).expand(batch).contiguous(), 1, 1
+    flat = x.reshape(aligned).reshape(-1)
+    return flat, rows_per, flat.stride(0) if flat.numel() > 1 else 0
+
+
 @register_kernel("segment_overlap", KernelType.CUDA)
-def segment_overlap(s_i, e_i, starts, ends) -> torch.Tensor:
+def segment_overlap(s_i, e_i, starts, ends, *, n_filled=None, co=None
+                    ) -> torch.Tensor:
     """Aggregated busy-segment overlap of the window ``[s_i, e_i)`` with
     segments ``(starts, ends)`` along the last axis — clamped overlaps
     accumulated left to right, the reference's encounter order. Empty
-    ring slots (``end = -inf``) contribute a clamped ``0.0``. ``s_i`` and
-    ``e_i`` broadcast against the batch; one window per group of rows
-    (``(V, 1)`` against ``(V, K, S)``) is read in place."""
+    slots (``end = -inf``) contribute a clamped ``0.0``.
+
+    ``n_filled`` (keyword, default all): the kernel reads only the first
+    ``n_filled`` slots of each row; the rest must be empty. ``co``
+    (keyword): an int32 CUDA index tensor into the second-to-last axis of
+    ``starts``/``ends``; the kernel reads those rows where they lie, and
+    the result is ``(..., len(co))``. Its values must be in range: they
+    are not checked on the host. ``s_i`` and ``e_i`` broadcast against the
+    result; one window per group of rows (``(V, 1)``, also a strided
+    column of a ``(V, J)`` tensor) is read in place."""
     name = "segment_overlap"
     s = _require_cuda(name, starts, "starts").contiguous()
     e = _require_cuda(name, ends, "ends")
@@ -323,24 +358,35 @@ def segment_overlap(s_i, e_i, starts, ends) -> torch.Tensor:
         raise ValueError(
             f"cuda kernel {name!r}: ends is {e.dtype} on {e.device}, "
             f"expected {s.dtype} on {s.device}")
+    if s.dim() < 1:
+        raise ValueError(f"cuda kernel {name!r}: starts need a slot axis")
     e = e.broadcast_to(s.shape).contiguous()
-    batch, n_segs = tuple(s.shape[:-1]), s.shape[-1]
+    S = s.shape[-1]
+    n = filled_slots(n_filled, S)
+    if co is None:
+        batch, co_ptr, n_co, J = tuple(s.shape[:-1]), None, 1, 1
+    else:
+        if not isinstance(co, torch.Tensor) or co.dtype != torch.int32 \
+                or co.device != s.device or co.dim() != 1 or s.dim() < 2:
+            raise ValueError(
+                f"cuda kernel {name!r}: co must be a 1-D torch.int32 tensor "
+                f"on {s.device} indexing the second-to-last axis of a "
+                f"store of at least two dimensions")
+        co = co.contiguous()
+        n_co, J = co.shape[0], s.shape[-2]
+        batch, co_ptr = tuple(s.shape[:-2]) + (n_co,), co.data_ptr()
     out = torch.empty(batch, dtype=s.dtype, device=s.device)
     rows = _rows(batch)
     if rows == 0:
         return out
-    if n_segs == 0:
-        return out.zero_()
-    si, per_s = _grouped(name, s_i, s, batch, (), "s_i")
-    ei, per_e = _grouped(name, e_i, s, batch, (), "e_i")
-    if per_s != per_e:
-        si, per_s = si.broadcast_to(batch).contiguous(), 1
-        ei, per_e = ei.broadcast_to(batch).contiguous(), 1
+    si, per_s, stride_s = _window(name, s_i, s, batch, "s_i")
+    ei, per_e, stride_e = _window(name, e_i, s, batch, "e_i")
     lib = _library()
     with torch.cuda.device(s.device):
         code = getattr(lib, f"fabric_segment_overlap_{_suffix(s.dtype)}")(
-            si.data_ptr(), ei.data_ptr(), s.data_ptr(), e.data_ptr(),
-            out.data_ptr(), rows, n_segs, per_s, _stream(s))
+            si.data_ptr(), ei.data_ptr(), per_s, stride_s, per_e, stride_e,
+            s.data_ptr(), e.data_ptr(), co_ptr, n_co, J, S, n,
+            out.data_ptr(), rows, _stream(s))
     _check(name, lib, code)
     _LAUNCHES[name] += 1
     return out

@@ -399,6 +399,10 @@ def load_prep(static, data: Dict[str, np.ndarray], device, dtype
             "co": torch.as_tensor(np.array(co, dtype=np.int64),
                                   device=device),
             "co_list": co,
+            # the overlap kernels' form of `co`: they read the store's
+            # co-tenant rows where they lie
+            "co_idx": torch.as_tensor(np.array(co, dtype=np.int32),
+                                      device=device),
             "contended": bool(own.size and co_use.any()),
             "co_use_t": torch.as_tensor(np.ascontiguousarray(co_use.T),
                                         device=device),  # (Lo, J-1)
@@ -581,7 +585,9 @@ def run_loaded(loaded, kernels: KernelType = KernelType.TORCH
                 s_i, e_i = s_v[:, i:i + 1], e_v[:, i:i + 1]      # (V, 1)
                 same = _relu(torch.minimum(e_i, e_v[:, co])
                              - torch.maximum(s_i, s_v[:, co]))
-                seg = overlap_k(s_i, e_i, seg_s[:, co], seg_e[:, co])
+                # slots t.. of the store are still empty (-inf ends)
+                seg = overlap_k(s_i, e_i, seg_s, seg_e, n_filled=t,
+                                co=jb["co_idx"])
                 act = torch.where(jb["co_use_t"],
                                   (same + seg).unsqueeze(1), 0.0)
                 d_safe = torch.where(d_i > 0.0, d_i, 1.0)

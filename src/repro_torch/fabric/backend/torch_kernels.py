@@ -238,17 +238,45 @@ def strict_priority_shares(demands, priorities, capacity=1.0, *,
     return alloc
 
 
+def filled_slots(n_filled, S: int) -> int:
+    """``n_filled`` checked against a store of ``S`` slots per row: a
+    Python int in ``0 .. S``; ``None`` means all ``S``."""
+    if n_filled is None:
+        return S
+    if isinstance(n_filled, bool) or not isinstance(n_filled,
+                                                    (int, np.integer)):
+        raise TypeError(f"n_filled must be an int, got "
+                        f"{type(n_filled).__name__}")
+    if not 0 <= n_filled <= S:
+        raise ValueError(f"n_filled = {n_filled} is not in 0 .. {S}")
+    return int(n_filled)
+
+
 @register_kernel("segment_overlap", KernelType.TORCH)
-def segment_overlap(s_i, e_i, starts, ends, *, dtype=None, device=None
-                    ) -> torch.Tensor:
+def segment_overlap(s_i, e_i, starts, ends, *, n_filled=None, co=None,
+                    dtype=None, device=None) -> torch.Tensor:
     """Aggregated busy-segment overlap of the window ``[s_i, e_i)`` with
     segments ``(starts, ends)`` along the last axis. Dead or padded
     segments need no pruning or mask: any segment with
     ``end <= window start`` (use ``end = -inf`` for empty slots)
     contributes a clamped ``0.0``, exactly as the reference's
-    ``ov > 0.0`` guard skips it."""
+    ``ov > 0.0`` guard skips it.
+
+    ``n_filled`` (keyword): read only the first ``n_filled`` slots of each
+    row (default: all). The slots after them must be empty: each would add
+    ``+0.0`` to a non-negative total, so leaving them out changes no bit.
+    ``co`` (keyword): an integer index tensor into the store's
+    second-to-last axis; the rows read are ``starts[..., co, :]``, so the
+    result is ``(..., len(co))``. The runner passes its whole ``(V, J, S)``
+    store with an owner's co-tenants and the step's count of filled slots.
+    """
     s = as_float_tensor(starts, dtype, device)
     e = _like(ends, s).broadcast_to(s.shape)
+    n = filled_slots(n_filled, s.shape[-1])
+    if co is not None:
+        idx = torch.as_tensor(co, device=s.device)
+        s, e = s.index_select(-2, idx), e.index_select(-2, idx)
+    s, e = s[..., :n], e[..., :n]
     si = _like(s_i, s).unsqueeze(-1)
     ei = _like(e_i, s).unsqueeze(-1)
     ov = torch.minimum(ei, e) - torch.maximum(si, s)

@@ -11,7 +11,9 @@ Public layout as in the reference: r, k, w ``(B, S, H, K)``, v
 ``(B, S, H, V)``, u ``(H, K)``, s0 ``(B, H, K, V)``; returns y
 ``(B, S, H, V)`` in r's dtype and the final state ``(B, H, K, V)`` in
 float32. The kernel reads the inputs through their strides: no
-``moveaxis`` copy and no padding of S.
+``moveaxis`` copy and no padding of S. Its final state is the plain
+version's bits (each state element is rounded as the plain version rounds
+it); y is summed in another order.
 """
 from __future__ import annotations
 

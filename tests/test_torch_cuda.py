@@ -76,6 +76,63 @@ def test_torch_cuda_segment_overlap_matches_plain_version(card, dtype):
                  TK.segment_overlap(s_i, e_i, st, en))
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("S,n_filled", [(400, 0), (400, 1), (400, 37),
+                                        (400, 200), (400, 400), (64, 50),
+                                        (7, 5)])
+def test_torch_cuda_segment_overlap_reads_the_store_in_place(card, dtype, S,
+                                                             n_filled):
+    """K3 as the runner calls it: the whole (V, J, S) store through an
+    owner's int32 co-tenant index, the window a strided column of the
+    (V, J) windows, the first ``n_filled`` slots (37 and 50 are off the
+    tile of 32 float32 or 16 float64 slots; S 7 takes the value-at-a-time
+    staging). Bit-identical to the plain version in both dtypes, 93 rows
+    (not a whole number of 32-row tiles)."""
+    V, J = 31, 4
+    rng = np.random.default_rng(S + n_filled)
+    starts = rng.uniform(0.0, 10.0, size=(V, J, S))
+    ends = starts + rng.uniform(0.0, 3.0, size=(V, J, S))
+    ends[rng.uniform(size=ends.shape) < 0.2] = -np.inf
+    starts[:, :, n_filled:], ends[:, :, n_filled:] = 0.0, -np.inf
+    win = rng.uniform(0.0, 10.0, size=(V, J))
+    to = lambda x: torch.as_tensor(x).to(device=card, dtype=dtype)
+    st, en, ws = to(starts), to(ends), to(win)
+    we = ws + 2.0
+    for owner in range(J):
+        co = [k for k in range(J) if k != owner]
+        idx = torch.tensor(co, dtype=torch.int32, device=card)
+        before = CK.launch_counts()["segment_overlap"]
+        got = CK.segment_overlap(ws[:, owner:owner + 1],
+                                 we[:, owner:owner + 1], st, en,
+                                 n_filled=n_filled, co=idx)
+        assert CK.launch_counts()["segment_overlap"] == before + 1
+        want = TK.segment_overlap(ws[:, owner:owner + 1],
+                                  we[:, owner:owner + 1], st, en,
+                                  n_filled=n_filled, co=idx)
+        assert got.shape == (V, J - 1) and torch.equal(got, want)
+        # the same bits as the plain version on the gathered, cut store
+        assert torch.equal(got, TK.segment_overlap(
+            ws[:, owner:owner + 1], we[:, owner:owner + 1],
+            st[:, co, :n_filled], en[:, co, :n_filled]))
+
+
+def test_torch_cuda_segment_overlap_refuses_what_the_kernel_does_not_take(
+        card):
+    st = torch.zeros(4, 3, 8, device=card)
+    w = torch.zeros(4, 1, device=card)
+    before = CK.launch_counts()["segment_overlap"]
+    with pytest.raises(ValueError, match="n_filled"):
+        CK.segment_overlap(w, w, st, st, n_filled=9)
+    for co in (torch.tensor([0, 1], device=card),            # int64
+               torch.tensor([0, 1], dtype=torch.int32),       # on the CPU
+               [0, 1]):
+        with pytest.raises(ValueError, match="int32"):
+            CK.segment_overlap(w, w, st, st, co=co)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        CK.segment_overlap(w.cpu(), w, st, st)
+    assert CK.launch_counts()["segment_overlap"] == before
+
+
 def test_torch_cuda_backend_grid_is_bit_identical_to_torch_backend(card):
     base = Scenario(
         name="g", topology=TopologySpec(n_nodes=32, nodes_per_leaf=4),
@@ -300,7 +357,22 @@ def test_torch_cuda_wkv6_matches_plain_version(card, dtype, case):
     y_want, s_want = plain(*args)
     t = 2e-2 if dtype == torch.bfloat16 else 2e-4
     torch.testing.assert_close(y.float(), y_want.float(), rtol=t, atol=t)
-    torch.testing.assert_close(s, s_want, rtol=t, atol=t)
+    # each state element is rounded as the plain version rounds it
+    assert torch.equal(s, s_want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,V", [(64, 40), (64, 100), (16, 24), (8, 9)])
+def test_torch_cuda_wkv6_splits_v_across_blocks_unevenly(card, dtype, K, V):
+    """A block takes 16 state columns: V 40, 100, 24 and 9 leave the last
+    block of each (b, h) ragged (or alone and ragged)."""
+    from repro_torch.kernels.wkv6 import plain, wkv6
+    args = SMOKE.wkv_inputs((2, 50, 3, K, V), True, REAL, dtype, seed=V)
+    y, s = wkv6(*args)
+    y_want, s_want = plain(*args)
+    t = 2e-2 if dtype == torch.bfloat16 else 2e-4
+    torch.testing.assert_close(y.float(), y_want.float(), rtol=t, atol=t)
+    assert torch.equal(s, s_want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -321,7 +393,7 @@ def test_torch_cuda_wkv6_reads_strided_unaligned_views(card, dtype):
     y_want, s_want = plain(*args)
     t = 2e-2 if dtype == torch.bfloat16 else 2e-4
     torch.testing.assert_close(y.float(), y_want.float(), rtol=t, atol=t)
-    torch.testing.assert_close(s, s_want, rtol=t, atol=t)
+    assert torch.equal(s, s_want)
 
 
 def test_torch_cuda_wkv6_wrapper_refuses_what_the_kernel_does_not_take(card):

@@ -294,3 +294,39 @@ def test_torch_segment_store_is_lossless_past_64_iterations():
     loaded = TE.load_prep(p.static, {k: v[None] for k, v in p.data.items()},
                           "cpu", torch.float64)
     assert TE.segment_store_bytes(loaded) == 2 * 1 * 2 * iters * 8
+
+
+# -- the overlap call reads the store in place, filled slots only --------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_torch_sweep_overlap_in_place_keeps_the_gathered_calls_bits(
+        monkeypatch, dtype):
+    """The runner hands the overlap kernel its whole busy-segment store
+    with an owner's co-tenant index and the step's count of filled slots
+    (``n_filled = t``). The four-tenant ``backend="torch"`` sweep on the
+    CPU is bit for bit what it was when the runner gathered the
+    co-tenants' rows into a copy and summed all ``iters`` slots of it
+    (the empty slots add ``+0.0``), in float32 and float64, past 64
+    iterations."""
+    grid = ScenarioGrid(four_tenants(iters=70),
+                        {"congestion.u_mean": [0.2, 0.4],
+                         "policies.fairness": ["maxmin", "wfq"]})
+    now = grid.run(backend="torch", device="cpu", dtype=dtype)
+    plain = TE.get_kernel("segment_overlap", KernelType.TORCH)
+    calls = []
+
+    def gathered(s_i, e_i, starts, ends, *, n_filled=None, co=None):
+        calls.append(n_filled)
+        idx = co.long()
+        return plain(s_i, e_i, starts[:, idx], ends[:, idx])
+
+    real = TE.get_kernel
+    monkeypatch.setattr(TE, "get_kernel", lambda name, kernels: gathered
+                        if name == "segment_overlap" else real(name, kernels))
+    before = grid.run(backend="torch", device="cpu", dtype=dtype)
+    # one call per owner and step, at n_filled 0 .. iters - 1
+    assert calls == [t for t in range(70) for _ in NAMES] * 2
+    for (_, a), (_, b) in zip(now, before):
+        for name in NAMES:
+            assert a.series(name) == b.series(name), name

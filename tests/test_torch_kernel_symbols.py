@@ -97,6 +97,18 @@ def test_torch_kernel_symbols_profiled_kernels_exist():
     assert set(SMOKE.HOPPER_KERNELS) <= _global_functions()
 
 
+def test_torch_kernel_symbols_redesigned_kernels_are_reported():
+    """The kernels redesigned for Hopper (K4 and K5, then K3 and K6) get
+    their registers, spills, ptxas notes and SASS opcode counts in the
+    build lines; K3's check reads its cp.async copies (LDGSTS)."""
+    assert {"flash_fwd_wgmma_kernel", "rmsnorm_warp_kernel",
+            "segment_overlap_kernel", "wkv6_fwd_kernel"} == \
+        set(SMOKE.HOPPER_KERNELS)
+    assert {"HGMMA", "UTMALDG", "SYNCS", "LDGSTS"} <= set(SMOKE.SASS_OPCODES)
+    fabric = (CSRC / "fabric_kernels.cu").read_text()
+    assert "cp.async" in fabric and "segment_overlap_kernel" in fabric
+
+
 def _qkv(dtype, B=2, S=64, H=8, KV=2, D=64):
     gen = torch.Generator().manual_seed(0)
     mk = lambda *s: torch.randn(*s, generator=gen).to(dtype)

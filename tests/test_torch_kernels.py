@@ -272,6 +272,86 @@ def test_torch_segment_overlap_window_broadcast_and_empty():
         torch.zeros(12, dtype=F64))
 
 
+def _store(seed, V, J, S, n_filled):
+    """A ``(V, J, S)`` busy-segment store as the runner holds it at step
+    ``n_filled`` (slots ``[0, n_filled)`` written, the rest empty: start
+    0, end -inf), and the step's ``(V, J)`` windows."""
+    rng = np.random.default_rng(seed)
+    starts = rng.uniform(0.0, 10.0, size=(V, J, S))
+    ends = starts + rng.uniform(0.0, 3.0, size=(V, J, S))
+    ends[rng.uniform(size=ends.shape) < 0.2] = -np.inf
+    starts[:, :, n_filled:] = 0.0
+    ends[:, :, n_filled:] = -np.inf
+    win_s = rng.uniform(0.0, 10.0, size=(V, J))
+    win_e = win_s + rng.uniform(0.0, 4.0, size=(V, J))
+    return win_s, win_e, starts, ends
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+@pytest.mark.parametrize("n_filled", [0, 1, 37, 64])
+def test_torch_segment_overlap_reads_the_store_in_place(dtype, n_filled):
+    """``n_filled`` and the co-tenant index ``co`` against the runner's
+    former call on the gathered store (every slot, the empty ones adding
+    ``+0.0``): bit-identical, with the window a strided column of the
+    ``(V, J)`` windows; ``co`` as int32, int64 or a list."""
+    V, J, S = 10, 4, 64
+    ws, we, starts, ends = (torch.as_tensor(a).to(dtype)
+                            for a in _store(n_filled, V, J, S, n_filled))
+    for owner in range(J):
+        co = [k for k in range(J) if k != owner]
+        s_w, e_w = ws[:, owner:owner + 1], we[:, owner:owner + 1]
+        want = TK.segment_overlap(s_w, e_w, starts[:, co], ends[:, co])
+        assert want.shape == (V, J - 1) and want.dtype == dtype
+        for idx in (torch.tensor(co, dtype=torch.int32), torch.tensor(co),
+                    co):
+            got = TK.segment_overlap(s_w, e_w, starts, ends,
+                                     n_filled=n_filled, co=idx)
+            assert torch.equal(got, want)
+    # without co the rows are the store's own; n_filled alone
+    rows_s, rows_e = starts[:, 0], ends[:, 0]
+    got = TK.segment_overlap(ws[:, 0], we[:, 0], rows_s, rows_e,
+                             n_filled=n_filled)
+    assert torch.equal(got, TK.segment_overlap(ws[:, 0], we[:, 0], rows_s,
+                                               rows_e))
+
+
+@pytest.mark.parametrize("n_filled", [0, 1, 37, 64])
+def test_torch_segment_overlap_in_place_matches_jax_pallas_and_python(
+        n_filled):
+    """float64: the store read in place, cut to ``n_filled`` slots, against
+    the JAX package's Pallas kernel (interpret mode) on the gathered full
+    store, and against the definition summed left to right in Python over
+    the filled slots."""
+    V, J, S = 6, 4, 64
+    ws, we, starts, ends = _store(100 + n_filled, V, J, S, n_filled)
+    owner, co = 1, [0, 2, 3]
+    got = TK.segment_overlap(_t(ws)[:, owner:owner + 1],
+                             _t(we)[:, owner:owner + 1], _t(starts),
+                             _t(ends), n_filled=n_filled,
+                             co=torch.tensor(co, dtype=torch.int32)).numpy()
+    with jax.enable_x64(True):
+        want = np.asarray(jax_kernel("segment_overlap", "pallas")(
+            ws[:, owner:owner + 1], we[:, owner:owner + 1], starts[:, co],
+            ends[:, co]))
+    assert np.array_equal(got, want)
+    for v in range(V):
+        for c, k in enumerate(co):
+            tot = 0.0
+            for s in range(n_filled):
+                ov = min(we[v, owner], ends[v, k, s]) - \
+                    max(ws[v, owner], starts[v, k, s])
+                tot += ov if ov > 0.0 else 0.0
+            assert got[v, c] == tot
+
+
+def test_torch_segment_overlap_refuses_a_bad_n_filled():
+    s_i, e_i, starts, ends = (_t(a) for a in _segments(7, 4, 8))
+    for bad, err in ((-1, ValueError), (9, ValueError), (2.0, TypeError),
+                     (True, TypeError)):
+        with pytest.raises(err, match="n_filled"):
+            TK.segment_overlap(s_i, e_i, starts, ends, n_filled=bad)
+
+
 # -- pacing -------------------------------------------------------------------
 
 

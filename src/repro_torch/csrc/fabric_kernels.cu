@@ -31,49 +31,208 @@
 
 #include <cstdint>
 #include <cstring>
+#include <type_traits>
 
 #define MAX_FLOWS 32
+// flow counts 1..MAX_FIXED_FLOWS have a kernel of their own (the flow count
+// a template argument, every loop unrolled, the row in registers); 9..32
+// flows take the same kernels' runtime-n form
+#define MAX_FIXED_FLOWS 8
+// threads per block of the allocators and of their launch floor
 #define BLOCK_THREADS 128
 
 // ---------------------------------------------------------------------------
-// The shared fill: one progressive fill of a row's n demands d[] against
-// `remaining` capacity with weights w[]; writes alloc[] in flow order.
+// The allocators' arithmetic. One progressive fill of a row's n demands d[]
+// against `remaining` capacity with weights w[] writes alloc[] in flow
+// order:
 //
-//   rank   stable ascending rank of d/w by O(n^2) comparison, ties broken
-//          by flow index (Python sorted()'s order)
+//   rank   stable ascending rank of d/w, ties broken by flow index (Python
+//          sorted()'s order): flow j's rank counts the flows k < j with
+//          key[k] <= key[j] and the flows k > j with key[k] < key[j]
 //   w_left left-to-right sum of w in flow order
-//   fill   for each rank position, in order:
+//   fill   for each rank position p, in order:
 //            fair = w_left > 0 ? remaining * wj / w_left : remaining
 //            give = dj < fair ? dj : fair
 //            remaining -= give;  w_left -= wj
 //
-// A thread owns its row, so position p's flow is read by index (order[p]);
-// there is no masked-sum selection as a vector machine would need.
+// Arrays indexed at run time (a row in arrays of MAX_FLOWS entries,
+// position p's flow read as order[p]) live in the thread's local memory,
+// its stack, and every step of the chain would go through it. So for
+// N <= MAX_FIXED_FLOWS flows the flow count is a template argument and
+// every loop is unrolled: every array index is a constant and the row
+// stays in registers. Position p's flow is picked by predicated selects
+// over the unrolled rank[j] == p (the Pallas kernel's masked selection,
+// without the sum) and its allocation is written back the same way.
+//
+// Unit weights (max-min) are a template flag: w_left at position p is then
+// exactly N - p (a sum of ones is exact), remaining * 1 is remaining and
+// d / 1 is d, so the fill divides by the constant N - p and no bit moves.
 // ---------------------------------------------------------------------------
+
+// flow j's stable ascending rank among the flows whose bit is set in
+// `members` (every flow for the waterfill; one priority class for strict
+// priority)
+template <typename T, int N>
+__device__ __forceinline__ void stable_rank(const T (&key)[N],
+                                            unsigned members,
+                                            int (&rank)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    int r = 0;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      if (k == j) continue;
+      const bool before = k < j ? key[k] <= key[j] : key[k] < key[j];
+      r += (((members >> k) & 1u) && before) ? 1 : 0;
+    }
+    rank[j] = r;
+  }
+}
+
+// one row's loads: as 16-byte vectors where the row is a whole number of
+// them and `vec` says the base addresses are 16-byte aligned, else a value
+// at a time
+template <typename T, int N>
+__device__ __forceinline__ void load_row(const T* __restrict__ src,
+                                         T (&v)[N], bool vec) {
+  constexpr int BYTES = N * (int)sizeof(T);
+  if constexpr (BYTES % 16 == 0) {
+    if (vec) {
+#pragma unroll
+      for (int u = 0; u < BYTES / 16; ++u) {
+        const uint4 q = __ldg(reinterpret_cast<const uint4*>(src) + u);
+        memcpy(&v[u * (16 / (int)sizeof(T))], &q, 16);
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) v[j] = __ldg(src + j);
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void store_row(T* __restrict__ dst,
+                                          const T (&v)[N], bool vec) {
+  constexpr int BYTES = N * (int)sizeof(T);
+  if constexpr (BYTES % 16 == 0) {
+    if (vec) {
+#pragma unroll
+      for (int u = 0; u < BYTES / 16; ++u) {
+        uint4 q;
+        memcpy(&q, &v[u * (16 / (int)sizeof(T))], 16);
+        reinterpret_cast<uint4*>(dst)[u] = q;
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) dst[j] = v[j];
+}
+
+// K1's fill of one row of N flows, in registers
+template <typename T, int N, bool UNIT>
+__device__ __forceinline__ void fill_fixed(const T (&d)[N], const T (&w)[N],
+                                           T remaining, T (&alloc)[N]) {
+  T key[N];
+  int rank[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) key[j] = UNIT ? d[j] : d[j] / w[j];
+  stable_rank<T, N>(key, ~0u, rank);
+  T w_left = T(0);
+  if constexpr (!UNIT) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) w_left = w_left + w[j];
+  }
+#pragma unroll
+  for (int p = 0; p < N; ++p) {
+    T dj = T(0), wj = T(0);
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (rank[j] == p) {
+        dj = d[j];
+        if constexpr (!UNIT) wj = w[j];
+      }
+    T fair;
+    if constexpr (UNIT) {
+      fair = remaining / T(N - p);
+    } else {
+      fair = remaining;
+      if (w_left > T(0)) {
+        const T num = remaining * wj;
+        fair = num / w_left;
+      }
+    }
+    const T give = dj < fair ? dj : fair;
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (rank[j] == p) alloc[j] = give;
+    remaining = remaining - give;
+    if constexpr (!UNIT) w_left = w_left - wj;
+  }
+}
+
+// K2's fill of one priority class (the flows whose bit is set in `members`)
+// of a row of N flows, in registers: the max-min fill over the class's m
+// members only, in their stable order, dividing by m - p; then the outer
+// capacity loses the class's allocations in flow-index order and is clamped
+// at zero. The Python loop fills the class's members alone; the plain
+// PyTorch version and the Pallas kernel fill the whole row with the other
+// flows' demands zeroed, which is the same bits: each zeroed flow ranks
+// among the zeros, gives +0, leaves `remaining` as it was and lowers
+// w_left by exactly 1, so every member sees the same w_left and
+// `remaining`; and subtracting their +0 allocations changes no bit.
+template <typename T, int N>
+__device__ __forceinline__ void class_fill(const T (&d)[N], unsigned members,
+                                           T& remaining, T (&alloc)[N]) {
+  int rank[N];
+  stable_rank<T, N>(d, members, rank);
+  const int m = __popc(members);
+  T rem = remaining;
+#pragma unroll
+  for (int p = 0; p < N; ++p) {
+    if (p < m) {                              // the same for every thread
+      T dj = T(0);
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        if (((members >> j) & 1u) && rank[j] == p) dj = d[j];
+      const T fair = rem / T(m - p);
+      const T give = dj < fair ? dj : fair;
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        if (((members >> j) & 1u) && rank[j] == p) alloc[j] = give;
+      rem = rem - give;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    if ((members >> j) & 1u) remaining = remaining - alloc[j];
+  remaining = remaining < T(0) ? T(0) : remaining;
+}
+
+// The runtime-n form of the fill, for 9..MAX_FLOWS flows: the same
+// arithmetic over arrays indexed at run time (so in local memory). `w`
+// null means unit weights.
 template <typename T>
 __device__ __forceinline__ void fill_row(const T* d, const T* w, int n,
                                          T remaining, T* alloc) {
   int order[MAX_FLOWS];
   T key[MAX_FLOWS];
-  for (int j = 0; j < n; ++j) {
-    key[j] = d[j] / w[j];
-    order[j] = j;
-  }
+  for (int j = 0; j < n; ++j) key[j] = w ? d[j] / w[j] : d[j];
   for (int j = 0; j < n; ++j) {
     int rank = 0;
     const T kj = key[j];
     for (int k = 0; k < n; ++k) {
       const T kk = key[k];
-      rank += (kk < kj || (kk == kj && k < j)) ? 1 : 0;
+      rank += (k < j ? kk <= kj : kk < kj) ? 1 : 0;
     }
     order[rank] = j;
   }
   T w_left = T(0);
-  for (int j = 0; j < n; ++j) w_left = w_left + w[j];
+  for (int j = 0; j < n; ++j) w_left = w_left + (w ? w[j] : T(1));
   for (int p = 0; p < n; ++p) {
     const int j = order[p];
     const T dj = d[j];
-    const T wj = w[j];
+    const T wj = w ? w[j] : T(1);
     T fair = remaining;
     if (w_left > T(0)) {
       const T num = remaining * wj;
@@ -89,93 +248,130 @@ __device__ __forceinline__ void fill_row(const T* d, const T* w, int n,
 // ---------------------------------------------------------------------------
 // K1 waterfill — replaces the TPU kernel `_waterfill_kernel`
 // (src/repro/fabric/backend/pallas_kernels.py, with `_fill_tile` and
-// `_stable_rank`). Serves maxmin_shares (w == nullptr: unit weights) and
+// `_stable_rank`). Serves maxmin_shares (UNIT: unit weights, w unused) and
 // wfq_shares.
 //
 // Bound on this card: bytes. A row reads n demands, up to n weights and one
 // capacity and writes n allocations; at the sweep's shapes (4096*9 rows of
-// 4 flows) that is a few MB at 3.35 TB/s, i.e. around a microsecond, so
-// the floor in practice is the few microseconds of a kernel launch, not
-// bandwidth and not arithmetic. The design therefore keeps everything a row
-// needs in the thread's registers/local arrays, makes exactly one pass over
-// global memory, needs no row padding (the ragged tail is the bounds check
-// below) and no scratch. Weights shared by a group of rows (one weight
-// vector per variant against that variant's links) are read through
+// 4 flows) that is 1.2 MB, 0.35 us at 3.35 TB/s, below the time of a
+// kernel launch: the floor in practice is the launch and one row's
+// dependent chain, not bandwidth and not arithmetic. So a thread holds its
+// row in registers (N a template argument, see above), issues all of the
+// row's loads before the chain starts (one 16-byte load per 16 bytes of a
+// row where the layout allows), and makes one pass over device memory with
+// no row padding and no scratch. Weights shared by a group of rows (one
+// weight vector per variant against that variant's links) are read through
 // `rows_per_w` instead of being expanded in memory: row r uses weight row
 // r / rows_per_w. Capacity is an array (cap != nullptr) or one scalar.
+// N == 0 is the runtime-n form, for n > MAX_FIXED_FLOWS.
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void waterfill_kernel(const T* __restrict__ d,
-                                 const T* __restrict__ w,
-                                 const T* __restrict__ cap, T cap_scalar,
-                                 T* __restrict__ out, long long rows, int n,
-                                 long long rows_per_w) {
+template <typename T, int N, bool UNIT>
+__global__ void __launch_bounds__(BLOCK_THREADS)
+waterfill_kernel(const T* __restrict__ d, const T* __restrict__ w,
+                 const T* __restrict__ cap, T cap_scalar,
+                 T* __restrict__ out, long long rows, int n,
+                 long long rows_per_w, bool vec) {
   const long long r = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (r >= rows) return;
-  T dr[MAX_FLOWS], wr[MAX_FLOWS], alloc[MAX_FLOWS];
-  const T* drow = d + r * n;
-  const T* wrow = w ? w + (r / rows_per_w) * n : nullptr;
-  for (int j = 0; j < n; ++j) {
-    dr[j] = drow[j];
-    wr[j] = wrow ? wrow[j] : T(1);
-    alloc[j] = T(0);
+  if constexpr (N > 0) {
+    T dr[N], wr[N], alloc[N];
+    load_row<T, N>(d + r * N, dr, vec);
+    if constexpr (!UNIT) {
+      const long long wrow = rows_per_w == 1 ? r : r / rows_per_w;
+      load_row<T, N>(w + wrow * N, wr, vec);
+    }
+    const T remaining = cap ? __ldg(cap + r) : cap_scalar;
+    fill_fixed<T, N, UNIT>(dr, wr, remaining, alloc);
+    store_row<T, N>(out + r * N, alloc, vec);
+  } else {
+    T dr[MAX_FLOWS], wr[MAX_FLOWS], alloc[MAX_FLOWS];
+    const T* drow = d + r * n;
+    const T* wrow = UNIT ? nullptr : w + (r / rows_per_w) * n;
+    for (int j = 0; j < n; ++j) {
+      dr[j] = drow[j];
+      if (!UNIT) wr[j] = wrow[j];
+    }
+    fill_row<T>(dr, UNIT ? nullptr : wr, n, cap ? cap[r] : cap_scalar,
+                alloc);
+    T* orow = out + r * n;
+    for (int j = 0; j < n; ++j) orow[j] = alloc[j];
   }
-  fill_row<T>(dr, wr, n, cap ? cap[r] : cap_scalar, alloc);
-  T* orow = out + r * n;
-  for (int j = 0; j < n; ++j) orow[j] = alloc[j];
 }
 
 // ---------------------------------------------------------------------------
 // K2 strict priority — replaces the TPU kernel `_strict_priority_kernel`
-// (src/repro/fabric/backend/pallas_kernels.py). `masks` is the static
-// descending class-mask matrix (C, n) built on the host from the concrete
-// priorities. Per class: the shared fill over the full flow vector with
-// non-class demands zeroed and unit weights (zero demands rank first and
-// take nothing), masked back; the leftover capacity is re-derived by
-// subtracting the class's allocations in flow-index order, then clamped at
-// zero — the reference's order and rounding. The starved-class floor stays
-// with the caller.
+// (src/repro/fabric/backend/pallas_kernels.py). The class partition comes
+// by value in the kernel's arguments: one bit mask of member flows per
+// class, in descending priority order, built on the host from the concrete
+// priorities. Per class: the max-min fill over the class's members only
+// (`class_fill` above, which says why that is the same bits as the full-row
+// fill the plain version runs); the outer capacity loses the class's
+// allocations in flow-index order and is clamped at zero — the reference's
+// order and rounding. The starved-class floor stays with the caller.
 //
 // Bound on this card: bytes, as K1 (n demands and one capacity in, n
-// allocations out per row; the C*n mask bytes are shared by every row and
-// stay in cache), and at the sweep's shapes a launch's latency is the floor.
-// Design: same thread-per-row shape and the same __device__ fill as K1, the
-// class loop inside the thread so that the per-class carry never leaves it.
+// allocations out per row), and at the sweep's shapes a launch and a row's
+// chain are the floor. Design: K1's, the row in registers, the class loop
+// inside the thread so that the capacity carry never leaves it. With the
+// main path's priorities [2, 1, 0, 0] a row fills 4 positions (a full-row
+// fill per class would fill 12) and reads no mask from memory. N == 0 is
+// the runtime-n form, for n > MAX_FIXED_FLOWS.
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void strict_priority_kernel(const T* __restrict__ d,
-                                       const unsigned char* __restrict__ masks,
-                                       const T* __restrict__ cap,
-                                       T cap_scalar, T* __restrict__ out,
-                                       long long rows, int n, int n_classes) {
+struct ClassMasks {
+  int n;                     // classes
+  unsigned int m[MAX_FLOWS]; // member bits of each class, descending
+};
+
+template <typename T, int N>
+__global__ void __launch_bounds__(BLOCK_THREADS)
+strict_priority_kernel(const T* __restrict__ d, const ClassMasks cls,
+                       const T* __restrict__ cap, T cap_scalar,
+                       T* __restrict__ out, long long rows, int n,
+                       bool vec) {
   const long long r = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (r >= rows) return;
-  T dr[MAX_FLOWS], dm[MAX_FLOWS], ones[MAX_FLOWS], sub[MAX_FLOWS],
-      alloc[MAX_FLOWS];
-  const T* drow = d + r * n;
-  for (int j = 0; j < n; ++j) {
-    dr[j] = drow[j];
-    ones[j] = T(1);
-    alloc[j] = T(0);
-  }
-  T remaining = cap ? cap[r] : cap_scalar;
-  for (int c = 0; c < n_classes; ++c) {
-    const unsigned char* m = masks + c * n;
+  if constexpr (N > 0) {
+    T dr[N], alloc[N];
+    load_row<T, N>(d + r * N, dr, vec);
+    T remaining = cap ? __ldg(cap + r) : cap_scalar;
+#pragma unroll
+    for (int j = 0; j < N; ++j) alloc[j] = T(0);
+#pragma unroll
+    for (int c = 0; c < N; ++c)              // at most one class per flow
+      if (c < cls.n) class_fill<T, N>(dr, cls.m[c], remaining, alloc);
+    store_row<T, N>(out + r * N, alloc, vec);
+  } else {
+    T dr[MAX_FLOWS], dm[MAX_FLOWS], sub[MAX_FLOWS], alloc[MAX_FLOWS];
+    int idx[MAX_FLOWS];
+    const T* drow = d + r * n;
     for (int j = 0; j < n; ++j) {
-      dm[j] = m[j] ? dr[j] : T(0);
-      sub[j] = T(0);
+      dr[j] = drow[j];
+      alloc[j] = T(0);
     }
-    fill_row<T>(dm, ones, n, remaining, sub);
-    for (int j = 0; j < n; ++j) {
-      sub[j] = m[j] ? sub[j] : T(0);
-      alloc[j] = alloc[j] + sub[j];
+    T remaining = cap ? cap[r] : cap_scalar;
+    for (int c = 0; c < cls.n; ++c) {
+      const unsigned members = cls.m[c];
+      int m = 0;
+      for (int j = 0; j < n; ++j)
+        if ((members >> j) & 1u) {
+          dm[m] = dr[j];
+          idx[m++] = j;
+        }
+      fill_row<T>(dm, nullptr, m, remaining, sub);
+      for (int k = 0; k < m; ++k) {           // idx ascends: index order
+        alloc[idx[k]] = sub[k];
+        remaining = remaining - sub[k];
+      }
+      remaining = remaining < T(0) ? T(0) : remaining;
     }
-    for (int j = 0; j < n; ++j) remaining = remaining - sub[j];
-    remaining = remaining < T(0) ? T(0) : remaining;
+    T* orow = out + r * n;
+    for (int j = 0; j < n; ++j) orow[j] = alloc[j];
   }
-  T* orow = out + r * n;
-  for (int j = 0; j < n; ++j) orow[j] = alloc[j];
 }
+
+// The launch floor: an empty kernel, launched with an allocator's grid and
+// block, whose device time is the least any launch of that shape takes.
+__global__ void launch_floor_kernel() {}
 
 // ---------------------------------------------------------------------------
 // K3 segment overlap — replaces the TPU kernel `_segment_overlap_kernel`
@@ -357,8 +553,26 @@ segment_overlap_kernel(const T* __restrict__ s_i, const T* __restrict__ e_i,
 // launchers (plain C)
 // ---------------------------------------------------------------------------
 
+static inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 static inline unsigned int n_blocks(long long rows) {
   return (unsigned int)((rows + BLOCK_THREADS - 1) / BLOCK_THREADS);
+}
+
+// calls f(std::integral_constant<int, N>) with N = n for n in
+// 1..MAX_FIXED_FLOWS, else with N = 0 (the runtime-n form)
+template <int N = 1, typename F>
+static void with_flow_count(int n, F&& f) {
+  if constexpr (N <= MAX_FIXED_FLOWS) {
+    if (n == N)
+      f(std::integral_constant<int, N>{});
+    else
+      with_flow_count<N + 1>(n, f);
+  } else {
+    f(std::integral_constant<int, 0>{});
+  }
 }
 
 template <typename T>
@@ -367,24 +581,44 @@ static int launch_waterfill(const void* d, const void* w, const void* cap,
                             int n, long long rows_per_w, void* stream) {
   if (rows <= 0 || n <= 0) return (int)cudaSuccess;
   if (n > MAX_FLOWS || rows_per_w <= 0) return (int)cudaErrorInvalidValue;
-  waterfill_kernel<T><<<n_blocks(rows), BLOCK_THREADS, 0,
-                        (cudaStream_t)stream>>>(
-      (const T*)d, (const T*)w, (const T*)cap, (T)cap_scalar, (T*)out, rows,
-      n, rows_per_w);
+  const bool vec = aligned16(d) && aligned16(out) && (!w || aligned16(w));
+  const unsigned int grid = n_blocks(rows);
+  with_flow_count(n, [&](auto nc) {
+    constexpr int N = decltype(nc)::value;
+    if (w == nullptr)
+      waterfill_kernel<T, N, true><<<grid, BLOCK_THREADS, 0,
+                                     (cudaStream_t)stream>>>(
+          (const T*)d, nullptr, (const T*)cap, (T)cap_scalar, (T*)out, rows,
+          n, 1, vec);
+    else
+      waterfill_kernel<T, N, false><<<grid, BLOCK_THREADS, 0,
+                                      (cudaStream_t)stream>>>(
+          (const T*)d, (const T*)w, (const T*)cap, (T)cap_scalar, (T*)out,
+          rows, n, rows_per_w, vec);
+  });
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-static int launch_strict_priority(const void* d, const void* masks,
-                                  const void* cap, double cap_scalar,
-                                  void* out, long long rows, int n,
-                                  int n_classes, void* stream) {
+static int launch_strict_priority(const void* d, const unsigned int* masks,
+                                  int n_classes, const void* cap,
+                                  double cap_scalar, void* out,
+                                  long long rows, int n, void* stream) {
   if (rows <= 0 || n <= 0) return (int)cudaSuccess;
-  if (n > MAX_FLOWS || n_classes < 0) return (int)cudaErrorInvalidValue;
-  strict_priority_kernel<T><<<n_blocks(rows), BLOCK_THREADS, 0,
-                              (cudaStream_t)stream>>>(
-      (const T*)d, (const unsigned char*)masks, (const T*)cap,
-      (T)cap_scalar, (T*)out, rows, n, n_classes);
+  if (n > MAX_FLOWS || n_classes < 1 || n_classes > n)
+    return (int)cudaErrorInvalidValue;
+  ClassMasks cls;
+  cls.n = n_classes;
+  for (int c = 0; c < MAX_FLOWS; ++c) cls.m[c] = c < n_classes ? masks[c] : 0u;
+  const bool vec = aligned16(d) && aligned16(out);
+  const unsigned int grid = n_blocks(rows);
+  with_flow_count(n, [&](auto nc) {
+    constexpr int N = decltype(nc)::value;
+    strict_priority_kernel<T, N><<<grid, BLOCK_THREADS, 0,
+                                   (cudaStream_t)stream>>>(
+        (const T*)d, cls, (const T*)cap, (T)cap_scalar, (T*)out, rows, n,
+        vec);
+  });
   return (int)cudaGetLastError();
 }
 
@@ -401,8 +635,7 @@ static int launch_segment_overlap(const void* s_i, const void* e_i,
       (co != nullptr && (n_co <= 0 || J <= 0)))
     return (int)cudaErrorInvalidValue;
   const bool vec = (row_len * (long long)sizeof(T)) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(starts) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(ends) % 16 == 0;
+                   aligned16(starts) && aligned16(ends);
   const unsigned int grid = (unsigned int)((rows + OV_ROWS - 1) / OV_ROWS);
   if (vec)
     segment_overlap_kernel<T, true><<<grid, OV_ROWS, 0,
@@ -441,20 +674,29 @@ int fabric_waterfill_f64(const void* d, const void* w, const void* cap,
                                   rows_per_w, stream);
 }
 
-int fabric_strict_priority_f32(const void* d, const void* masks,
-                               const void* cap, double cap_scalar, void* out,
-                               long long rows, int n, int n_classes,
-                               void* stream) {
-  return launch_strict_priority<float>(d, masks, cap, cap_scalar, out, rows,
-                                       n, n_classes, stream);
+// `masks`: host memory, n_classes member masks in descending priority
+// order; copied into the launch's arguments
+int fabric_strict_priority_f32(const void* d, const unsigned int* masks,
+                               int n_classes, const void* cap,
+                               double cap_scalar, void* out, long long rows,
+                               int n, void* stream) {
+  return launch_strict_priority<float>(d, masks, n_classes, cap, cap_scalar,
+                                       out, rows, n, stream);
 }
 
-int fabric_strict_priority_f64(const void* d, const void* masks,
-                               const void* cap, double cap_scalar, void* out,
-                               long long rows, int n, int n_classes,
-                               void* stream) {
-  return launch_strict_priority<double>(d, masks, cap, cap_scalar, out, rows,
-                                        n, n_classes, stream);
+int fabric_strict_priority_f64(const void* d, const unsigned int* masks,
+                               int n_classes, const void* cap,
+                               double cap_scalar, void* out, long long rows,
+                               int n, void* stream) {
+  return launch_strict_priority<double>(d, masks, n_classes, cap, cap_scalar,
+                                        out, rows, n, stream);
+}
+
+int fabric_launch_floor(long long rows, void* stream) {
+  if (rows <= 0) return (int)cudaSuccess;
+  launch_floor_kernel<<<n_blocks(rows), BLOCK_THREADS, 0,
+                        (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
 }
 
 int fabric_segment_overlap_f32(const void* s_i, const void* e_i,

@@ -47,19 +47,91 @@ def _same(got, want):
     return bool(((got - want).abs() <= eps * want.abs()).all())
 
 
+# flow counts 1..8 have a kernel each (the row in registers); 16 and 32
+# take the runtime-n form
+ALLOC_SHAPES = [(1000, 5), (36864, 4), (17, 1)] + \
+    [(300, n) for n in (1, 2, 3, 4, 6, 7, 8, 16, 32)]
+PARTITIONS = {
+    "descending": lambda n, rng: list(range(n))[::-1],
+    "one class": lambda n, rng: [0] * n,
+    "main path": lambda n, rng: ([2, 1] + [0] * n)[:n],
+    "random": lambda n, rng: rng.integers(0, 3, size=n),
+}
+
+
+@pytest.mark.parametrize("partition", sorted(PARTITIONS))
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("rows,n", [(1000, 5), (36864, 4), (17, 1)])
-def test_torch_cuda_allocators_match_plain_versions(card, dtype, rows, n):
-    d, w, cap = _inputs(rows, n, dtype, card)
-    pr = list(range(n))[::-1]
+@pytest.mark.parametrize("rows,n", ALLOC_SHAPES)
+def test_torch_cuda_allocators_match_plain_versions(card, dtype, rows, n,
+                                                    partition):
+    d, w, cap = _inputs(rows, n, dtype, card, seed=n)
+    pr = PARTITIONS[partition](n, np.random.default_rng(rows + n))
     before = CK.launch_counts()
     assert _same(CK.maxmin_shares(d, cap), TK.maxmin_shares(d, cap))
     assert _same(CK.wfq_shares(d, w, cap), TK.wfq_shares(d, w, cap))
+    # one weight vector per group of three rows, read in place
+    if rows % 3 == 0:
+        wg = w[::3].reshape(rows // 3, 1, n).contiguous()
+        d3 = d.reshape(rows // 3, 3, n)
+        assert _same(CK.wfq_shares(d3, wg), TK.wfq_shares(d3, wg))
     assert _same(CK.strict_priority_shares(d, pr, cap),
                  TK.strict_priority_shares(d, pr, cap))
     after = CK.launch_counts()
-    for k in ("maxmin_shares", "wfq_shares", "strict_priority_shares"):
+    for k in ("maxmin_shares", "strict_priority_shares"):
         assert after[k] == before[k] + 1
+    assert after["wfq_shares"] == before["wfq_shares"] + 1 + (rows % 3 == 0)
+
+
+def _offset_view(x):
+    """``x``'s values in a contiguous view one element into its storage."""
+    v = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    return v.view(x.shape).copy_(x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [4, 8])
+def test_torch_cuda_allocators_take_unaligned_rows(card, dtype, n):
+    """At 4 and 8 flows a row is a whole number of 16-byte vectors, which
+    the kernels load and store as such when the bases are 16-byte
+    aligned. Demands, weights and capacity one element into their storage
+    take the scalar loads instead: the same bits as the aligned call."""
+    d, w, cap = _inputs(300, n, dtype, card, seed=20 + n)
+    od, ow, ocap = _offset_view(d), _offset_view(w), _offset_view(cap)
+    assert od.data_ptr() % 16 and ow.data_ptr() % 16
+    for name, extra, oextra in (
+            ("maxmin_shares", (), ()), ("wfq_shares", (w,), (ow,)),
+            ("strict_priority_shares", ([2, 1] + [0] * (n - 2),),
+             ([2, 1] + [0] * (n - 2),))):
+        got = getattr(CK, name)(od, *oextra, ocap)
+        assert torch.equal(got, getattr(CK, name)(d, *extra, cap)), name
+        assert _same(got, getattr(TK, name)(d, *extra, cap)), name
+
+
+def test_torch_cuda_allocator_wrappers_refuse_what_the_kernels_do_not_take(
+        card):
+    d = torch.rand(8, 4, device=card, dtype=torch.float64)
+    before = CK.launch_counts()
+    for name, extra in (("maxmin_shares", ()), ("wfq_shares", (None,)),
+                        ("strict_priority_shares", ([1, 0, 0, 0],))):
+        fn = getattr(CK, name)
+        with pytest.raises(ValueError, match="takes CUDA tensors; demands "
+                                             "is on cpu. backend='torch'"):
+            fn(d.cpu(), *extra)
+        with pytest.raises(ValueError, match="takes torch.float32 or "
+                                             "torch.float64; demands is "
+                                             "torch.float16"):
+            fn(d.half(), *extra, validate=False)
+        wide = torch.rand(2, CK.MAX_FLOWS + 1, device=card)
+        with pytest.raises(ValueError, match=f"at most {CK.MAX_FLOWS} flows "
+                                             f"per row, got 33"):
+            fn(wide, *((list(range(33)),) if extra and extra[0] else extra))
+    with pytest.raises(ValueError, match="4 demands but 3 priorities"):
+        CK.strict_priority_shares(d, [1, 0, 0])
+    with pytest.raises(ValueError, match="weights is torch.float32"):
+        CK.wfq_shares(d, torch.ones(8, 4, device=card))
+    with pytest.raises(ValueError, match="capacity is on cpu"):
+        CK.maxmin_shares(d, torch.ones(8, dtype=torch.float64))
+    assert CK.launch_counts() == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])

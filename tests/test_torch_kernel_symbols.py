@@ -98,15 +98,72 @@ def test_torch_kernel_symbols_profiled_kernels_exist():
 
 
 def test_torch_kernel_symbols_redesigned_kernels_are_reported():
-    """The kernels redesigned for Hopper (K4 and K5, then K3 and K6) get
-    their registers, spills, ptxas notes and SASS opcode counts in the
-    build lines; K3's check reads its cp.async copies (LDGSTS)."""
+    """The kernels redesigned for Hopper (K4 and K5, then K3 and K6, then
+    K1 and K2) get their registers, spills, stack frame, ptxas notes and
+    SASS opcode counts in the build lines; K3's check reads its cp.async
+    copies (LDGSTS), and local-memory loads and stores (LDL, STL) show a
+    row that left the registers."""
     assert {"flash_fwd_wgmma_kernel", "rmsnorm_warp_kernel",
-            "segment_overlap_kernel", "wkv6_fwd_kernel"} == \
-        set(SMOKE.HOPPER_KERNELS)
-    assert {"HGMMA", "UTMALDG", "SYNCS", "LDGSTS"} <= set(SMOKE.SASS_OPCODES)
+            "segment_overlap_kernel", "wkv6_fwd_kernel", "waterfill_kernel",
+            "strict_priority_kernel"} == set(SMOKE.HOPPER_KERNELS)
+    assert {"HGMMA", "UTMALDG", "SYNCS", "LDGSTS", "LDL", "STL"} <= \
+        set(SMOKE.SASS_OPCODES)
     fabric = (CSRC / "fabric_kernels.cu").read_text()
     assert "cp.async" in fabric and "segment_overlap_kernel" in fabric
+    # the launch floor chip_smoke.py profiles beside K1 and K2
+    assert "launch_floor_kernel" in _global_functions()
+
+
+# the mangled names of the allocator instantiations: N flows, float or
+# double, and for K1 the unit-weight flag
+def _waterfill(t, n, unit):
+    return f"_Z16waterfill_kernelI{t}Li{n}ELb{int(unit)}EEvPKT_S2_S2_S0_" \
+        f"PS0_xixb"
+
+
+def _strict(t, n):
+    return f"_Z22strict_priority_kernelI{t}Li{n}EEvPKT_10ClassMasksS2_S0_" \
+        f"PS0_xib"
+
+
+@pytest.mark.parametrize("t", ["f", "d"])
+def test_torch_kernel_symbols_main_path_allocators_are_picked(t):
+    """The build line's stack-frame check covers the instantiations the
+    main path launches (4 flows, both dtypes, maxmin, wfq and strict
+    priority) and no other."""
+    pick = SMOKE.MAIN_PATH_ALLOCATORS.search
+    assert pick(_waterfill(t, 4, True)) and pick(_waterfill(t, 4, False))
+    assert pick(_strict(t, 4))
+    for n in (0, 1, 3, 5, 8):
+        assert not pick(_waterfill(t, n, True)) and not pick(_strict(t, n))
+    assert not pick("_Z22segment_overlap_kernelIfLb1EEvPKT_")
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z16waterfill_kernelIfLi4ELb1EEv' for 'sm_90a'
+ptxas info    : Function properties for _Z16waterfill_kernelIfLi4ELb1EEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 30 registers, 410 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z16waterfill_kernelIfLi0ELb1EEv' for 'sm_90a'
+ptxas info    : Function properties for __internal_callee
+    24 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Function properties for _Z16waterfill_kernelIfLi0ELb1EEv
+    392 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, 410 bytes cmem[0]
+"""
+
+
+def test_torch_kernel_symbols_ptxas_report_reads_the_stack_frame():
+    """Each entry's stack frame and spills come from its own "Function
+    properties" block, never a callee's."""
+    a, b = SMOKE.ptxas_report(PTXAS_LOG)
+    assert a == {"function": "_Z16waterfill_kernelIfLi4ELb1EEv",
+                 "stack_frame": 0, "spill_stores": 0, "spill_loads": 0,
+                 "registers": 30}
+    assert b == {"function": "_Z16waterfill_kernelIfLi0ELb1EEv",
+                 "stack_frame": 392, "spill_stores": 0, "spill_loads": 0,
+                 "registers": 40}
 
 
 def _qkv(dtype, B=2, S=64, H=8, KV=2, D=64):

@@ -72,6 +72,8 @@ def _library() -> ctypes.CDLL:
         lib.model_mamba_scan_fwd.restype = i
         lib.model_flash_wgmma_smem_bytes.argtypes = [i]
         lib.model_flash_wgmma_smem_bytes.restype = i
+        lib.model_mamba_smem_bytes.argtypes = [i, i]
+        lib.model_mamba_smem_bytes.restype = i
         lib.model_error_string.argtypes = [i]
         lib.model_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -107,6 +109,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_wgmma_smem_bytes(D: int) -> int:
     """Dynamic shared memory of ``flash_fwd_wgmma_kernel`` at head dim D."""
     return int(_library().model_flash_wgmma_smem_bytes(D))
+
+
+def mamba_smem_bytes(dtype: torch.dtype, N: int) -> int:
+    """Dynamic shared memory of ``mamba_scan_fwd_kernel`` for x's dtype and
+    state dim N."""
+    return int(_library().model_mamba_smem_bytes(DTYPE_CODES[dtype], N))
 
 
 def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, out: torch.Tensor,

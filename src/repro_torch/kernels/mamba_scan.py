@@ -11,8 +11,17 @@ recurrence), its launch count is
 Public layout as in the reference: x, dt ``(B, S, Din)``, A ``(Din, N)``,
 B, C ``(B, S, N)``, D ``(Din,)``, h0 ``(B, Din, N)``; returns y
 ``(B, S, Din)`` in x's dtype and the final state ``(B, Din, N)`` in
-float32. The kernel reads x, dt, B and C through their strides and masks
-the ragged edge of Din itself: no copy and no padding of S or Din.
+float32. The kernel reads x, dt, B and C through their strides (x and dt
+by 16-byte ``cp.async`` copies where their rows are 16-byte aligned,
+element by element otherwise) and masks the ragged edges of S and Din
+itself: no copy and no padding.
+
+Rounding: the kernel rounds the state as the plain version does (dt A,
+dt x, (dt x) B, dA h and their sum each one correctly rounded float32
+operation, ``expf`` for the exponential), so ``h_out`` is the plain
+version's bits, whatever the chunk. Only y's sum over n runs in another
+order; it is held to the plain version at 2e-4 (float32) and 2e-2
+(bfloat16).
 """
 from __future__ import annotations
 

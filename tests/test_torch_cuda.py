@@ -516,7 +516,8 @@ def test_torch_cuda_smoke_rwkv_generate_matches_torch_backend(card):
 
 # K7 (the Mamba selective scan) within 2e-4 of its plain version in
 # float32 and 2e-2 in bfloat16, y and the final state
-# (tests/test_kernels.py's), over chip_smoke.py's cases and inputs
+# (tests/test_kernels.py's), over chip_smoke.py's cases and inputs (S at
+# the kernel's chunk's edges among them); the final state bit-identical
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -535,12 +536,15 @@ def test_torch_cuda_mamba_scan_matches_plain_version(card, dtype, case):
     t = 2e-2 if dtype == torch.bfloat16 else 2e-4
     torch.testing.assert_close(y.float(), y_want.float(), rtol=t, atol=t)
     torch.testing.assert_close(h, h_want, rtol=t, atol=t)
+    assert torch.equal(h, h_want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_torch_cuda_mamba_scan_reads_strided_views(card, dtype):
     """x, dt, B and C as views into wider tensors (the slices of a
-    projection), offset by one element; Din not a multiple of the block."""
+    projection), offset by one element, so that no row of x or dt is
+    16-byte aligned (the element-by-element copies); Din not a multiple of
+    the block. The same bits as the call on contiguous (aligned) copies."""
     from repro_torch.kernels.mamba_scan import mamba_scan, plain
     B, S, Din, N = 2, 70, 200, 16
     x, dt, A, Bm, C, D, h0 = SMOKE.mamba_inputs((B, S, Din + 3, N + 1),
@@ -556,6 +560,32 @@ def test_torch_cuda_mamba_scan_reads_strided_views(card, dtype):
     t = 2e-2 if dtype == torch.bfloat16 else 2e-4
     torch.testing.assert_close(y.float(), y_want.float(), rtol=t, atol=t)
     torch.testing.assert_close(h, h_want, rtol=t, atol=t)
+    assert x.data_ptr() % 16 != 0 and (x.stride(1) * x.element_size()) % 16
+    y_al, h_al = mamba_scan(*(v.contiguous() for v in (x, dt, A, Bm, C, D,
+                                                       h0)))
+    assert torch.equal(y, y_al) and torch.equal(h, h_al)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_torch_cuda_mamba_scan_reads_aligned_strided_views(card, dtype):
+    """x and dt as 16-byte aligned slices of wider rows (the cp.async
+    copies through strides, as the Jamba mixer's projection slices would
+    be): the same bits as the call on contiguous copies, and the plain
+    version's final state."""
+    from repro_torch.kernels.mamba_scan import mamba_scan, plain
+    B, S, Din, N = 2, 70, 1000, 16
+    x, dt, A, Bm, C, D, h0 = SMOKE.mamba_inputs((B, S, 2 * Din + 16, N),
+                                                "given", None, dtype, seed=6)
+    x, dt = x[..., 16:16 + Din], dt[..., Din + 16:]
+    A, D = A[:Din].contiguous(), D[:Din].contiguous()
+    h0 = h0[:, :Din].contiguous()
+    for v in (x, dt):
+        assert v.data_ptr() % 16 == 0 and not v.is_contiguous()
+        assert (v.stride(1) * v.element_size()) % 16 == 0
+    y, h = mamba_scan(x, dt, A, Bm, C, D, h0)
+    y_al, h_al = mamba_scan(x.contiguous(), dt.contiguous(), A, Bm, C, D, h0)
+    assert torch.equal(y, y_al) and torch.equal(h, h_al)
+    assert torch.equal(h, plain(x, dt, A, Bm, C, D, h0)[1])
 
 
 def test_torch_cuda_mamba_scan_wrapper_refuses_what_the_kernel_does_not_take(

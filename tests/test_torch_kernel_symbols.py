@@ -99,15 +99,19 @@ def test_torch_kernel_symbols_profiled_kernels_exist():
 
 def test_torch_kernel_symbols_redesigned_kernels_are_reported():
     """The kernels redesigned for Hopper (K4 and K5, then K3 and K6, then
-    K1 and K2) get their registers, spills, stack frame, ptxas notes and
-    SASS opcode counts in the build lines; K3's check reads its cp.async
-    copies (LDGSTS), and local-memory loads and stores (LDL, STL) show a
-    row that left the registers."""
+    K1 and K2, then K7) get their registers, spills, stack frame, ptxas
+    notes and SASS opcode counts in the build lines; K3's and K7's checks
+    read their cp.async copies (LDGSTS), MUFU counts K7's exponentials,
+    and local-memory loads and stores (LDL, STL) show a row or a state
+    that left the registers."""
     assert {"flash_fwd_wgmma_kernel", "rmsnorm_warp_kernel",
             "segment_overlap_kernel", "wkv6_fwd_kernel", "waterfill_kernel",
-            "strict_priority_kernel"} == set(SMOKE.HOPPER_KERNELS)
-    assert {"HGMMA", "UTMALDG", "SYNCS", "LDGSTS", "LDL", "STL"} <= \
-        set(SMOKE.SASS_OPCODES)
+            "strict_priority_kernel",
+            "mamba_scan_fwd_kernel"} == set(SMOKE.HOPPER_KERNELS)
+    assert {"HGMMA", "UTMALDG", "SYNCS", "LDGSTS", "SHFL", "MUFU", "LDL",
+            "STL"} <= set(SMOKE.SASS_OPCODES)
+    model = (CSRC / "model_kernels.cu").read_text()
+    assert "cp.async" in model and "mamba_scan_fwd_kernel" in model
     fabric = (CSRC / "fabric_kernels.cu").read_text()
     assert "cp.async" in fabric and "segment_overlap_kernel" in fabric
     # the launch floor chip_smoke.py profiles beside K1 and K2
@@ -137,6 +141,28 @@ def test_torch_kernel_symbols_main_path_allocators_are_picked(t):
     for n in (0, 1, 3, 5, 8):
         assert not pick(_waterfill(t, n, True)) and not pick(_strict(t, n))
     assert not pick("_Z22segment_overlap_kernelIfLb1EEvPKT_")
+
+
+def test_torch_kernel_symbols_main_path_scans_are_picked():
+    """The build line's stack-frame check of K7 covers its N = 16
+    instantiations (Jamba's d_state), both dtypes, and not N = 8."""
+    pick = SMOKE.MAIN_PATH_SCANS.search
+    tail = "EvPKT_S2_PKfS2_S2_S4_S4_PS0_Pfiixxxxxxxxii"
+    for t in ("f", "13__nv_bfloat16"):
+        assert pick(f"_Z21mamba_scan_fwd_kernelI{t}Li16E{tail}")
+        assert not pick(f"_Z21mamba_scan_fwd_kernelI{t}Li8E{tail}")
+    assert not pick("_Z15wkv6_fwd_kernelIfLi16EEvPKT_")
+
+
+def test_torch_kernel_symbols_k7_cases_sit_at_its_chunk_edges():
+    """``chip_smoke.MAMBA_CASES`` (which the card's tests also run) hold
+    K7 at S = chunk - 1, chunk and chunk + 1 for the chunk the kernel is
+    built with, and at S 1."""
+    model = (CSRC / "model_kernels.cu").read_text()
+    chunk = int(re.search(r"constexpr int MAMBA_T = (\d+);",
+                          model).group(1))
+    lengths = {shape[1] for _, shape, _, _ in SMOKE.MAMBA_CASES}
+    assert {1, chunk - 1, chunk, chunk + 1} <= lengths
 
 
 PTXAS_LOG = """\

@@ -31,6 +31,9 @@ from repro_torch.fabric.scheduling import (SCHEDULERS, Scheduler,  # noqa: F401
 from repro_torch.fabric.workloads import (InferenceSpec,           # noqa: F401
                                           InferenceTenant, Tenant,
                                           TrainingTenant)
+from repro_torch.fabric.simulator import (SimConfig, SimResult,    # noqa: F401
+                                          efficiency_curve, job_spec_from,
+                                          scenario_from, simulate)
 from repro_torch.fabric.stragglers import (ComputeModel,           # noqa: F401
                                            StragglerConfig)
 from repro_torch.fabric.topology import (FatTree, Link, Topology,  # noqa: F401
@@ -38,3 +41,7 @@ from repro_torch.fabric.topology import (FatTree, Link, Topology,  # noqa: F401
 from repro_torch.fabric.scenario import (Policies, Result,         # noqa: F401
                                          Scenario, ScenarioError,
                                          ScenarioGrid, TopologySpec)
+from repro_torch.fabric.trace import (Calibration, Trace,          # noqa: F401
+                                      TraceError, TraceFit,
+                                      TraceValidation, calibrate,
+                                      fit_trace, load_trace)

@@ -126,11 +126,13 @@ EQUIVALENCE_TIERS: Dict[str, Tuple[str, float]] = {
 
 # Kernels with a plain PyTorch registration. ``drr_shares`` and
 # ``offered_share`` are not on the batched runner's path (it rejects those
-# fairness modes) and stay reference-only for now.
+# fairness modes) and have no hand-written CUDA kernel.
 TORCH_KERNELS: Tuple[str, ...] = (
     "maxmin_shares",
     "wfq_shares",
     "strict_priority_shares",
+    "drr_shares",
+    "offered_share",
     "pacing_decide",
     "segment_overlap",
     "scenario",
@@ -229,3 +231,42 @@ def available_backends(name: str) -> Tuple[str, ...]:
     for bk in KernelType:
         _ensure_loaded(bk)
     return tuple(b.value for (n, b) in _REGISTRY if n == name)
+
+
+def counterfactual_sweep(scenarios, backend: Union[str, KernelType] = "cuda",
+                         device=None, dtype=None) -> list:
+    """Run an arbitrary scenario list for the what-if advisor
+    (:mod:`repro_torch.fabric.advisor`): every variant the batched runner
+    can take (static jobs, fairness inside
+    :data:`BATCHED_SCENARIO_FAIRNESS`, static routing) runs through it on
+    ``backend``, ``device`` and ``dtype``, one program per structural
+    group; the others (event timelines, exotic fairness, adaptive routing)
+    run on the reference engine. Which variant goes where is decided
+    before anything runs, by the runner's own test
+    (:func:`~repro_torch.fabric.backend.torch_engine.batched_refusal`).
+    There is no quiet stand-in: an error of the batched run (no card, a
+    failed build or launch, a store that does not fit) ends the call.
+    Returns ``(result, backend_name)`` pairs in input order, so the
+    advisor can grade each prediction's confidence by the equivalence
+    tier of the backend that produced it.
+    """
+    kind = KernelType.parse(backend, default=KernelType.CUDA)
+    out: list = [None] * len(scenarios)
+    eligible: list = []
+    if kind in (KernelType.TORCH, KernelType.CUDA):
+        from repro_torch.fabric.backend.torch_engine import (batched_refusal,
+                                                             run_scenarios)
+        eligible = [i for i, s in enumerate(scenarios)
+                    if batched_refusal(s.jobs is not None,
+                                       s.policies.fairness,
+                                       s.policies.routing) is None]
+        if eligible:
+            results = run_scenarios(
+                [(scenarios[i], None) for i in eligible], kernels=kind,
+                device=device, dtype=dtype)
+            for i, res in zip(eligible, results):
+                out[i] = (res, kind.value)
+    for i, s in enumerate(scenarios):
+        if out[i] is None:
+            out[i] = (s.run(backend="reference"), "reference")
+    return out

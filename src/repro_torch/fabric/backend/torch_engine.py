@@ -255,25 +255,40 @@ def _build_jobs(scenario, topo):
     return hit
 
 
-def _prep(scenario, topo=None, backend: str = "torch") -> _Prep:
-    if scenario.jobs is None:
-        raise BackendError(
-            f"backend={backend!r} runs static-jobs scenarios only; "
-            f"unsupported feature: events= (lifecycle timeline); nearest "
-            f"supported backend: 'reference'")
-    fairness = scenario.policies.fairness
+def batched_refusal(static: bool, fairness: str, routing: str,
+                    backend: str = "torch") -> Optional[str]:
+    """Why the batched runner cannot take a scenario of this shape (a
+    static ``jobs`` population or not, its fairness mode and routing
+    policy), as the text of the :class:`BackendError` it raises, or
+    ``None`` when it can. This is the one test of eligibility: :func:`_prep`
+    raises with it, and callers that route scenarios between backends
+    decide with it before anything runs."""
+    if not static:
+        return (f"backend={backend!r} runs static-jobs scenarios only; "
+                f"unsupported feature: events= (lifecycle timeline); "
+                f"nearest supported backend: 'reference'")
     if fairness not in SUPPORTED_FAIRNESS:
-        raise BackendError(
-            f"backend={backend!r} supports fairness {SUPPORTED_FAIRNESS}; "
-            f"unsupported feature: fairness={fairness!r}; nearest "
-            f"supported backend: 'reference'")
+        return (f"backend={backend!r} supports fairness "
+                f"{SUPPORTED_FAIRNESS}; unsupported feature: "
+                f"fairness={fairness!r}; nearest supported backend: "
+                f"'reference'")
     from repro_torch.fabric.policies import ROUTING
-    if ROUTING.get(scenario.policies.routing).adaptive:
-        raise BackendError(
-            f"backend={backend!r} runs static-jobs scenarios only; "
-            f"unsupported feature: routing={scenario.policies.routing!r} "
-            f"(per-iteration byte re-split); nearest supported backend: "
-            f"'reference'")
+    # an unknown name is not the runner's to refuse: validation names it
+    if routing in ROUTING and ROUTING.get(routing).adaptive:
+        return (f"backend={backend!r} runs static-jobs scenarios only; "
+                f"unsupported feature: routing={routing!r} "
+                f"(per-iteration byte re-split); nearest supported "
+                f"backend: 'reference'")
+    return None
+
+
+def _prep(scenario, topo=None, backend: str = "torch") -> _Prep:
+    refusal = batched_refusal(scenario.jobs is not None,
+                              scenario.policies.fairness,
+                              scenario.policies.routing, backend)
+    if refusal is not None:
+        raise BackendError(refusal)
+    fairness = scenario.policies.fairness
     topo, jobs = _build_jobs(scenario, topo)
     J = len(jobs)
     iters = scenario.iters

@@ -47,6 +47,7 @@ import torch
 
 from repro_torch.fabric.backend import (KernelType, register_kernel,
                                         resolve_device, resolve_dtype)
+from repro_torch.fabric.congestion import RESIDUAL_SHARE
 
 _FLOATS = (torch.float32, torch.float64)
 
@@ -236,6 +237,101 @@ def strict_priority_shares(demands, priorities, capacity=1.0, *,
             remaining = remaining - sub[..., k]
         remaining = torch.where(remaining < 0.0, 0.0, remaining)
     return alloc
+
+
+@register_kernel("drr_shares", KernelType.TORCH)
+def drr_shares(demands, weights=None, capacity=1.0, rounds: int = 64, *,
+               dtype=None, device=None,
+               validate: bool = True) -> torch.Tensor:
+    """Batched deficit round robin.
+
+    The quantized drain is data-dependent, so the rounds run as a masked
+    loop until every batch lane has drained (a lane whose link is full or
+    whose flows are all served keeps its state while the others go on).
+    Within a round the flows are visited in ring order as a Python loop
+    over the short flow axis, with the reference's per-flow arithmetic —
+    deficit top-up, backlog and remaining caps, the early stop once the
+    link saturates mid-round — operand for operand, so float64 is
+    bit-identical to :func:`repro_torch.fabric.congestion.drr_shares`.
+    Reading each round's lane mask back ends the loop, so a call waits
+    for its device once per round.
+    """
+    if validate:
+        check_demands_launch(demands, capacity)
+    if rounds < 1:
+        raise ValueError(f"rounds must be >= 1, got {rounds}")
+    d = as_float_tensor(demands, dtype, device)
+    n = d.shape[-1]
+    if n == 0:
+        return torch.zeros_like(d)
+    if weights is None:
+        w = torch.ones_like(d)
+    else:
+        w = _like(weights, d).broadcast_to(d.shape)
+        if validate and not bool((w > 0.0).all()):
+            raise ValueError(f"weights must be positive, got "
+                             f"{float(w[~(w > 0.0)][0])!r}")
+    batch = d.shape[:-1]
+    D = d.reshape(-1, n)
+    W = w.reshape(-1, n)
+    cap = _like(capacity, d).broadcast_to(batch).reshape(-1)
+    # capacity / rounds / w_min, each a true division by a device tensor
+    unit = cap / torch.full_like(cap, float(rounds)) / W.amin(dim=-1)
+    floor = 1e-15 * cap
+    alloc = torch.zeros_like(D)
+    deficit = torch.zeros_like(D)
+    active = D > 0.0
+    remaining = cap.clone()
+    while True:
+        lane = (remaining > floor) & active.any(dim=-1)
+        if not bool(lane.any()):
+            break
+        stopped = torch.zeros_like(lane)
+        still = torch.zeros_like(active)
+        for j in range(n):
+            act = lane & active[:, j] & ~stopped
+            dj = D[:, j]
+            new_def = deficit[:, j] + unit * W[:, j]
+            send = new_def
+            backlog = dj - alloc[:, j]
+            send = torch.where(backlog < send, backlog, send)
+            send = torch.where(remaining < send, remaining, send)
+            send = torch.where(act, send, 0.0)
+            new_aj = alloc[:, j] + send
+            alloc[:, j] = torch.where(act, new_aj, alloc[:, j])
+            deficit[:, j] = torch.where(act, new_def - send, deficit[:, j])
+            remaining = remaining - send
+            still[:, j] = act & (new_aj < dj)
+            stopped = stopped | (act & (remaining <= 0.0))
+        active = torch.where(lane[:, None], still, active)
+    return alloc.reshape(d.shape)
+
+
+@register_kernel("offered_share", KernelType.TORCH)
+def offered_share(own_bytes, d_i, overlaps, flow_bytes, mask=None, *,
+                  dtype=None, device=None) -> torch.Tensor:
+    """Batched offered-bytes proportional share with the
+    :data:`~repro_torch.fabric.congestion.RESIDUAL_SHARE` floor.
+
+    ``overlaps``/``flow_bytes``: ``(..., F)`` co-tenant flows; ``mask``
+    zeroes padded flow slots (adding ``0.0`` is exact, so padded and
+    unpadded totals are the same float). The total accumulates left to
+    right from ``own_bytes``, as the reference loop does, so float64 is
+    bit-identical to :func:`repro_torch.fabric.congestion.offered_share`.
+    """
+    ov = as_float_tensor(overlaps, dtype, device)
+    b = _like(flow_bytes, ov).broadcast_to(ov.shape)
+    own = _like(own_bytes, ov).broadcast_to(ov.shape[:-1])
+    di = _like(d_i, ov).broadcast_to(ov.shape[:-1])[..., None]
+    contrib = torch.where(ov >= di, b, (ov / di) * b)
+    if mask is not None:
+        contrib = torch.where(torch.as_tensor(mask, device=ov.device),
+                              contrib, 0.0)
+    total = own
+    for k in range(ov.shape[-1]):
+        total = total + contrib[..., k]
+    share = torch.where(total > own, own / total, 1.0)
+    return torch.where(share > RESIDUAL_SHARE, share, RESIDUAL_SHARE)
 
 
 def filled_slots(n_filled, S: int) -> int:

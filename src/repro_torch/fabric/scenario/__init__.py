@@ -43,10 +43,12 @@ Design contract:
     :mod:`repro_torch.fabric.policies`, so third-party registrations are
     immediately addressable from scenarios.
 
-:class:`ScenarioGrid` sweeps dotted-path overrides over a base scenario.
-The named scenario library, trace fitting and the advisor are not in this
-package yet (ROADMAP.md, "Port queue"); the methods that reach them raise
-:class:`NotImplementedError`.
+:class:`ScenarioGrid` sweeps dotted-path overrides over a base scenario;
+:mod:`repro_torch.fabric.scenario.library` names ready-made scenarios for
+the paper's failure modes. Trace fitting and export
+(:mod:`repro_torch.fabric.trace`) and attribution and advice
+(:mod:`repro_torch.fabric.advisor`) are reached from :meth:`Scenario.
+from_trace` and the :class:`Result` methods.
 """
 from __future__ import annotations
 
@@ -76,10 +78,6 @@ from repro_torch.ft.failure import HeartbeatConfig, RestoreCostModel
 ALGOS = ("ring", "tree", "hierarchical", "sharp", "auto")
 
 TOPOLOGY_KINDS = ("fat_tree", "tpu_pod", "rail_optimized", "multi_pod")
-
-
-_NOT_PORTED = ("{what} needs {module}, which this package does not hold "
-               "yet; see the 'Port queue' in ROADMAP.md")
 
 
 class ScenarioError(ValueError):
@@ -652,10 +650,16 @@ class Scenario:
 
     @classmethod
     def from_trace(cls, path_or_records, topology=None) -> "Scenario":
-        """Fit a replayable scenario to a PRISM-style trace. Not in this
-        package yet: waits for the port of the trace module."""
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="Scenario.from_trace", module="fabric/trace.py"))
+        """Fit a replayable scenario to a PRISM-style trace (a
+        :class:`repro_torch.fabric.trace.Trace`, a file path, a dict tree,
+        or a bare record list with an explicit ``topology=``). See
+        :func:`repro_torch.fabric.trace.fit_trace` for the fitting
+        contract; malformed traces raise
+        :class:`repro_torch.fabric.trace.TraceError` with the offending
+        record index."""
+        from repro_torch.fabric import trace as _trace
+        return _trace.scenario_from_trace(path_or_records,
+                                          topology=topology)
 
     def replace(self, **kw) -> "Scenario":
         return dataclasses.replace(self, **kw)
@@ -842,33 +846,48 @@ class Result:
             snap["tenants"].append(entry)
         return snap
 
-    # -- attribution, advice, trace export: not in this package yet --------
+    # -- attribution + advice ----------------------------------------------
     def attribute(self):
-        """Bottleneck attribution. Waits for the port of the advisor."""
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="Result.attribute", module="fabric/advisor.py"))
+        """Bottleneck attribution (:func:`repro_torch.fabric.advisor.
+        attribute`): decompose each tenant's overhead above its
+        uncontended compute+comm floor into the paper's failure-mode
+        buckets (synchronization / contention / locality) plus a signed
+        residual that reconstructs the measured overhead bit-exactly.
+        Needs a reference-backend result (the batched backends carry
+        series only)."""
+        from repro_torch.fabric import advisor as _advisor
+        return _advisor.attribute(self)
 
     def advise(self, **kw):
-        """Counterfactual recommendations. Waits for the port of the
-        advisor."""
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="Result.advise", module="fabric/advisor.py"))
+        """Attribution-guided counterfactual recommendations
+        (:func:`repro_torch.fabric.advisor.advise`): ranked
+        :class:`~repro_torch.fabric.advisor.Recommendation` values along
+        the axes the attribution implicates, executed as one batched
+        sweep and reference-verified at the top."""
+        from repro_torch.fabric import advisor as _advisor
+        return _advisor.advise(self.scenario, self, **kw)
 
     def diagnose(self) -> str:
-        """The attribution summary as a report string."""
+        """The attribution summary as a report string (``diagnostics()``
+        stays the raw per-tenant metric dict)."""
         return self.attribute().summary()
 
+    # -- trace export / validation ------------------------------------------
     def to_trace(self):
-        """Export this run as a trace. Waits for the port of the trace
-        module."""
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="Result.to_trace", module="fabric/trace.py"))
+        """Export this run as a :class:`repro_torch.fabric.trace.Trace`
+        (reference backend only — the export walks the engines' step
+        instrumentation). The round trip
+        ``Scenario.from_trace(result.to_trace())`` is the self-
+        consistency anchor the trace tests pin."""
+        from repro_torch.fabric import trace as _trace
+        return _trace.result_to_trace(self)
 
     def validate(self, trace, topology=None):
-        """Predicted-vs-observed error report against a trace. Waits for
-        the port of the trace module."""
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="Result.validate", module="fabric/trace.py"))
+        """Predicted-vs-observed error report against a trace:
+        :class:`repro_torch.fabric.trace.TraceValidation` with per-tenant
+        mean/p99 relative error and series correlation."""
+        from repro_torch.fabric import trace as _trace
+        return _trace.validate_result(self, trace, topology=topology)
 
 
 # ---------------------------------------------------------------------------

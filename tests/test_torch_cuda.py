@@ -243,6 +243,60 @@ def test_torch_cuda_bare_run_launches_the_kernels_on_the_card(card):
     assert CK.launch_counts()["segment_overlap"] == 2 * 2 * 10
 
 
+def test_torch_cuda_counterfactual_sweep_ends_on_a_refused_store(
+        card, monkeypatch):
+    """The runner refuses a group whose busy-segment store does not fit
+    the card's free memory; ``counterfactual_sweep`` lets that refusal end
+    the call instead of running the batch on the Python engine. The card
+    is made to report 64 bytes free (the store of two variants x two jobs
+    x 10 iterations in float32 is 320), so the refusal is the runner's
+    own."""
+    from repro_torch.fabric.backend import (BackendError,
+                                            counterfactual_sweep)
+    scn = Scenario(
+        name="store", topology=TopologySpec(n_nodes=32, nodes_per_leaf=4),
+        jobs=[JobSpec("a", 8, placement="scattered"),
+              JobSpec("b", 8, placement="scattered", grad_bytes=2e9)],
+        iters=10, warmup=2)
+    ran = []
+    real = Scenario._run_reference
+    monkeypatch.setattr(Scenario, "_run_reference",
+                        lambda self, topo=None: ran.append(self.name)
+                        or real(self, topo))
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device=None: (64, 80 << 30))
+    with pytest.raises(BackendError, match="busy-segment store"):
+        counterfactual_sweep([scn, scn.replace(name="other")],
+                             backend="cuda")
+    assert ran == []
+
+
+def test_torch_cuda_advise_and_calibrate_on_the_card(card):
+    """The diagnostic path's front doors with nothing asked for: the
+    advisor's and the calibration's batched runs go to the card."""
+    import os
+
+    from repro_torch.fabric.advisor import advise
+    from repro_torch.fabric.scenario import library
+    from repro_torch.fabric.trace import calibrate, load_trace
+    scn = library.build("topology_contention")
+    CK.reset_launch_counts()
+    recs = advise(scn, verify=True)
+    counts = CK.launch_counts()
+    assert counts["strict_priority_shares"] > 0
+    assert counts["maxmin_shares"] > 0 and counts["segment_overlap"] > 0
+    want = advise(scn, backend="reference")
+    assert [(r.action, r.tenant) for r in recs[:3]] == \
+        [(r.action, r.tenant) for r in want[:3]]
+    assert recs[0].verified_delta_s == want[0].verified_delta_s
+    tr = load_trace(os.path.join(os.path.dirname(__file__), "traces",
+                                 "steady_trainers.json"))
+    cal = calibrate(tr)
+    assert cal.backend == "cuda"
+    cpu = calibrate(tr, backend="torch", device="cpu", dtype=torch.float64)
+    assert cal.best_params == cpu.best_params
+
+
 def _load_chip_smoke():
     import importlib.util
     import pathlib

@@ -26,6 +26,11 @@ def test_torch_port_has_the_expected_files():
                  "src/repro_torch/fabric/backend/torch_kernels.py",
                  "src/repro_torch/fabric/backend/cuda_kernels.py",
                  "src/repro_torch/fabric/backend/torch_engine.py",
+                 "src/repro_torch/fabric/scenario/library.py",
+                 "src/repro_torch/fabric/simulator.py",
+                 "src/repro_torch/fabric/_reference.py",
+                 "src/repro_torch/fabric/trace.py",
+                 "src/repro_torch/fabric/advisor.py",
                  "src/repro_torch/configs/base.py",
                  "src/repro_torch/configs/qwen2_7b.py",
                  "src/repro_torch/core/coordination.py",
@@ -140,6 +145,17 @@ def test_torch_port_runs_in_a_process_without_jax_or_repro():
         ref = base.run(backend="reference")
         assert ref.fingerprint()["jobs"][0]["name"] == "a"
         available_backends("maxmin_shares")       # loads every backend module
+        from repro_torch.fabric import advisor, simulator, trace
+        from repro_torch.fabric import _reference
+        from repro_torch.fabric.scenario import library
+        fit = trace.fit_trace(trace.load_trace("tests/traces/"
+                                               "steady_trainers.json"))
+        recs = advisor.advise(library.build("synchronization_amplification"),
+                              backend="reference", verify=False)
+        assert fit.scenario.policies.backend == "cuda" and recs
+        sim = simulator.SimConfig.fast(8)
+        assert simulator.simulate(sim).step_times == \
+            _reference.simulate_reference(sim).step_times
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "jaxlib" or m == "repro"

@@ -97,6 +97,18 @@ def test_torch_kernel_symbols_profiled_kernels_exist():
     assert set(SMOKE.HOPPER_KERNELS) <= _global_functions()
 
 
+def test_torch_kernel_symbols_diagnostic_path_profiles_k1_to_k3():
+    """The diagnostic phase counts K1-K3 by the profiler under these
+    names, and by the wrappers' counts under these keys."""
+    syms = {sym for _, sym in SMOKE.DIAG_KERNELS.values()}
+    assert syms == {"waterfill_kernel", "strict_priority_kernel",
+                    "segment_overlap_kernel"}
+    assert syms <= _global_functions()
+    from repro_torch.fabric.backend import cuda_kernels as CK
+    keys = {k for names, _ in SMOKE.DIAG_KERNELS.values() for k in names}
+    assert keys == set(CK.launch_counts())
+
+
 def test_torch_kernel_symbols_redesigned_kernels_are_reported():
     """The kernels redesigned for Hopper (K4 and K5, then K3 and K6, then
     K1 and K2, then K7) get their registers, spills, stack frame, ptxas

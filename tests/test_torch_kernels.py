@@ -11,7 +11,10 @@ packages. Tolerances, per kernel (``EQUIVALENCE_TIERS``):
   * ``segment_overlap``: bit-identical to the JAX kernels (same
     left-to-right accumulation);
   * ``bank_decide`` / ``pacing_decide``: within 4 ULPs of the JAX kernel
-    and of the Python ``PacingBank`` (the ``ulp`` tier; observed 0).
+    and of the Python ``PacingBank`` (the ``ulp`` tier; observed 0);
+  * ``drr_shares`` / ``offered_share`` (plain versions only, off the
+    batched runner's path): **bit-identical** to the Python loops and to
+    the JAX ``jnp`` kernels under float64.
 """
 import jax
 import numpy as np
@@ -93,10 +96,12 @@ def test_torch_registry_parse_and_errors():
     with pytest.raises(ValueError, match="already registered"):
         get_kernel("maxmin_shares", "torch")
         register_kernel("maxmin_shares", KernelType.TORCH, lambda: None)
-    # drr / offered stay reference-only; the error names the stand-in
-    with pytest.raises(BackendError,
-                       match="nearest supported backend: 'reference'"):
-        get_kernel("drr_shares", "torch")
+    # drr / offered have plain versions and no CUDA kernel; the error
+    # names the nearest backend that has them
+    for name in ("drr_shares", "offered_share"):
+        with pytest.raises(BackendError,
+                           match="nearest supported backend: 'torch'"):
+            get_kernel(name, "cuda")
     with pytest.raises(BackendError,
                        match="nearest supported backend: 'torch'"):
         get_kernel("pacing_decide", "cuda")
@@ -432,3 +437,87 @@ def test_torch_pacing_decide_tracks_python_bank_and_jax_kernel():
                            PacingConfig(enabled=False))
     assert torch.equal(off[0], torch.zeros(n, dtype=F64))
     assert torch.equal(off[1], _t(delay))
+
+
+# -- drr and offered share: plain versions, bit-identical --------------------
+
+
+@pytest.mark.parametrize("rounds", [1, 7, 64])
+@pytest.mark.parametrize("n", [1, 2, 5, 8])
+def test_torch_drr_shares_bit_identical_to_python_reference(n, rounds):
+    d, w, cap, _ = _cases(40 + n, 50, n)
+    w[::4] = 1.0                                # the unit-quantum rows
+    got = get_kernel("drr_shares", "torch")(_t(d), _t(w), _t(cap),
+                                            rounds=rounds)
+    assert got.dtype == F64 and got.shape == d.shape
+    want = np.array([ref.drr_shares(list(d[r]), list(w[r]), float(cap[r]),
+                                    rounds=rounds) for r in range(len(d))])
+    assert np.array_equal(got.numpy(), want)
+    unweighted = TK.drr_shares(_t(d), None, _t(cap), rounds=rounds)
+    assert np.array_equal(unweighted.numpy(), np.array(
+        [ref.drr_shares(list(d[r]), None, float(cap[r]), rounds=rounds)
+         for r in range(len(d))]))
+
+
+def test_torch_drr_shares_bit_identical_to_jax_kernel():
+    d, w, cap, _ = _cases(3, 33, 6)
+    d = d.reshape(3, 11, 6)
+    w = w.reshape(3, 11, 6)
+    cap = cap.reshape(3, 11)
+    got = TK.drr_shares(_t(d), _t(w), _t(cap)).numpy()
+    with jax.enable_x64(True):
+        want = np.asarray(jax_kernel("drr_shares", "jnp")(d, w, cap))
+    assert want.dtype == np.float64 and np.array_equal(got, want)
+
+
+def test_torch_drr_shares_edges_and_rejections():
+    assert TK.drr_shares(_t(np.zeros((2, 0))), device="cpu").shape == (2, 0)
+    # a lane that drains early keeps its bits while the others go on
+    d = _t([[0.1, 0.2], [5.0, 7.0]])
+    got = TK.drr_shares(d, None, _t([1.0, 1.0]), rounds=4)
+    assert got[0].tolist() == ref.drr_shares([0.1, 0.2], None, 1.0, 4)
+    assert got[1].tolist() == ref.drr_shares([5.0, 7.0], None, 1.0, 4)
+    with pytest.raises(ValueError, match="demands must be >= 0"):
+        TK.drr_shares(_t([1.0, -1.0]))
+    with pytest.raises(ValueError, match="weights must be positive"):
+        TK.drr_shares(_t([1.0, 1.0]), _t([1.0, 0.0]))
+    with pytest.raises(ValueError, match="rounds must be >= 1"):
+        TK.drr_shares(_t([1.0]), rounds=0)
+    f32 = TK.drr_shares(torch.rand(4, 3), device="cpu")
+    assert f32.dtype == torch.float32
+
+
+def _offered_cases(seed, rows, flows):
+    rng = np.random.default_rng(seed)
+    d_i = rng.uniform(0.05, 2.0, size=rows)
+    own = rng.uniform(0.0, 5.0, size=rows)
+    own[::5] = 0.0                          # the RESIDUAL_SHARE floor
+    ov = rng.uniform(0.0, 3.0, size=(rows, flows))
+    ov[::3, 0] = d_i[::3]                   # overlap == window: whole bytes
+    b = rng.uniform(0.0, 5.0, size=(rows, flows))
+    return own, d_i, ov, b
+
+
+@pytest.mark.parametrize("flows", [1, 3, 6])
+def test_torch_offered_share_bit_identical_to_python_reference(flows):
+    own, d_i, ov, b = _offered_cases(flows, 60, flows)
+    got = get_kernel("offered_share", "torch")(_t(own), _t(d_i), _t(ov),
+                                               _t(b))
+    want = [ref.offered_share(float(own[r]), float(d_i[r]),
+                              list(zip(ov[r], b[r]))) for r in range(60)]
+    assert got.dtype == F64 and got.tolist() == want
+
+
+def test_torch_offered_share_mask_and_jax_kernel():
+    own, d_i, ov, b = _offered_cases(9, 40, 5)
+    mask = np.ones((40, 5), dtype=bool)
+    mask[:, 3:] = False                     # padded flow slots
+    got = TK.offered_share(_t(own), _t(d_i), _t(ov), _t(b), mask)
+    want = [ref.offered_share(float(own[r]), float(d_i[r]),
+                              list(zip(ov[r, :3], b[r, :3])))
+            for r in range(40)]
+    assert got.tolist() == want
+    with jax.enable_x64(True):
+        jx = np.asarray(jax_kernel("offered_share", "jnp")(
+            own, d_i, ov, b, mask))
+    assert np.array_equal(got.numpy(), jx)

@@ -159,14 +159,39 @@ def test_torch_policies_know_the_ports_backends_only():
 @pytest.mark.parametrize("call", ["from_trace", "attribute", "advise",
                                   "diagnose", "to_trace", "validate"])
 def test_torch_unported_surfaces_say_where_they_are_queued(call):
-    res = _static().run(backend="reference")
-    with pytest.raises(NotImplementedError, match="Port queue"):
-        if call == "from_trace":
+    """These surfaces were queued for a later slice of the port and raised
+    ``NotImplementedError`` naming the queue; they are ported now, so each
+    reaches the port's trace or advisor module and gives what the JAX
+    package's gives on the same run."""
+    from repro.fabric.trace import TraceError as JaxTraceError
+    from repro_torch.fabric.trace import TraceError
+    scn = _static()
+    res = scn.run(backend="reference")
+    d = scn.to_dict()
+    d["policies"]["backend"] = "reference"
+    want = JaxScenario.from_dict(d).run()
+    if call == "from_trace":
+        with pytest.raises(TraceError) as mine:
             Scenario.from_trace([])
-        elif call == "validate":
-            res.validate(None)
-        else:
-            getattr(res, call)()
+        with pytest.raises(JaxTraceError) as theirs:
+            JaxScenario.from_trace([])
+        assert str(mine.value) == str(theirs.value)
+        fitted = Scenario.from_trace(res.to_trace())
+        assert fitted.jobs is not None and fitted.policies.backend == "cuda"
+    elif call == "validate":
+        assert res.validate(res.to_trace()).overall() == \
+            want.validate(want.to_trace()).overall()
+    elif call == "to_trace":
+        assert res.to_trace().to_dict() == want.to_trace().to_dict()
+    elif call == "advise":
+        got = [(r.action, r.tenant, r.delta_s) for r in
+               res.advise(backend="reference")]
+        assert got == [(r.action, r.tenant, r.delta_s) for r in
+                       want.advise(backend="reference")]
+    elif call == "attribute":
+        assert res.attribute().to_dict() == want.attribute().to_dict()
+    else:
+        assert res.diagnose() == want.diagnose()
 
 
 def test_torch_grid_mixes_reference_and_batched_variants():

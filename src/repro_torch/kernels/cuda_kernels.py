@@ -32,7 +32,9 @@ NVCC_FLAGS: Tuple[str, ...] = (
 LIBRARY = _nvcc.NvccLibrary(SOURCE, NVCC_FLAGS, "model_kernels")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+# K4's built (query/key head dim, value head dim) pairs: the GQA models'
+# equal dims, and MLA's dn + dr with dv (MiniCPM3, DeepSeek-V3)
+HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (96, 64), (192, 128))
 # K4's two kernels, as model_flash_attention_fwd numbers them
 FLASH_KERNELS = {"flash_fwd_kernel": 0, "flash_fwd_wgmma_kernel": 1}
 WKV_KEY_DIMS = (8, 16, 32, 64)      # K6 is built for these K
@@ -61,7 +63,7 @@ def _library() -> ctypes.CDLL:
         p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float)
         lib.model_flash_attention_fwd.argtypes = \
-            [p, p, p, p, i, i, i, i, i, i, i] + [ll] * 9 + [f, i, i, i, p]
+            [p, p, p, p] + [i] * 8 + [ll] * 9 + [f, i, i, i, p]
         lib.model_flash_attention_fwd.restype = i
         lib.model_rmsnorm_fwd.argtypes = [p, p, p, i, i, ll, i, f, p]
         lib.model_rmsnorm_fwd.restype = i
@@ -70,7 +72,7 @@ def _library() -> ctypes.CDLL:
         lib.model_mamba_scan_fwd.argtypes = [p] * 9 + [i] * 5 + [ll] * 8 \
             + [p]
         lib.model_mamba_scan_fwd.restype = i
-        lib.model_flash_wgmma_smem_bytes.argtypes = [i]
+        lib.model_flash_wgmma_smem_bytes.argtypes = [i, i]
         lib.model_flash_wgmma_smem_bytes.restype = i
         lib.model_mamba_smem_bytes.argtypes = [i, i]
         lib.model_mamba_smem_bytes.restype = i
@@ -92,23 +94,24 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, *, kernel: str, scale: float,
                         causal: bool, window: int, q_offset: int) -> None:
     """Launch K4's ``kernel`` (a key of :data:`FLASH_KERNELS`) writing
-    ``out`` (B, Sq, H, D), contiguous."""
-    B, Sq, H, D = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
+    ``out`` (B, Sq, H, Dv), contiguous."""
+    B, Sq, H, Dqk = q.shape
+    Sk, KV, Dv = v.shape[1], v.shape[2], v.shape[3]
     lib = _library()
     strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3]]
     with torch.cuda.device(q.device):
         code = lib.model_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            FLASH_KERNELS[kernel], B, Sq, Sk, H, KV, D, *strides,
+            FLASH_KERNELS[kernel], B, Sq, Sk, H, KV, Dqk, Dv, *strides,
             float(scale), int(bool(causal)), int(window), int(q_offset),
             torch.cuda.current_stream(q.device).cuda_stream)
     _check("flash_attention", lib, code)
 
 
-def flash_wgmma_smem_bytes(D: int) -> int:
-    """Dynamic shared memory of ``flash_fwd_wgmma_kernel`` at head dim D."""
-    return int(_library().model_flash_wgmma_smem_bytes(D))
+def flash_wgmma_smem_bytes(Dqk: int, Dv: int) -> int:
+    """Dynamic shared memory of ``flash_fwd_wgmma_kernel`` at the head dims
+    (Dqk, Dv), one of :data:`HEAD_DIMS`."""
+    return int(_library().model_flash_wgmma_smem_bytes(Dqk, Dv))
 
 
 def mamba_smem_bytes(dtype: torch.dtype, N: int) -> int:

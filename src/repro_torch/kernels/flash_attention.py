@@ -9,8 +9,11 @@ Replaces the Pallas TPU kernel ``repro.kernels.flash_attention._flash_kernel``
   (``wgmma`` on tiles that TMA copies into shared memory). TMA needs every
   base address, and every stride of a dimension longer than 1, to be a
   multiple of 16 bytes; a bfloat16 input that is not is refused with
-  ``ValueError``, never sent another way. The prefill's q, k and v, and
-  slices of one fused (B, S, 2 KV, D) tensor, always qualify.
+  ``ValueError``, never sent another way. The prefill's q, k and v,
+  slices of one fused (B, S, 2 KV, D) tensor, and MLA's v, the slice
+  ``kv[..., dn:]`` of its (B, S, H, dn + dv) product (128 bytes into each
+  row at dn 64), always qualify; nothing is copied to make them
+  contiguous.
 - ``torch.float32``: ``flash_fwd_kernel``, float32 FMAs on the CUDA cores:
   the 2e-5 float32 tolerance rules out TF32, the tensor cores' only
   float32 path.
@@ -20,8 +23,14 @@ design answers that. The plain PyTorch version is :func:`plain`
 (``repro_torch.kernels.ref.attention``); both kernels count under
 ``cuda_kernels.launch_counts()["flash_attention"]``.
 
-Public layout as in the reference: q ``(B, Sq, H, D)``, k and v
-``(B, Sk, KV, D)``; output ``(B, Sq, H, D)`` in q's dtype.
+Public layout as ``repro.kernels.ops.attention`` documents it: q
+``(B, Sq, H, Dqk)``, k ``(B, Sk, KV, Dqk)``, v ``(B, Sk, KV, Dv)``;
+output ``(B, Sq, H, Dv)`` in q's dtype. (Dqk, Dv) is one of the built
+pairs ``cuda_kernels.HEAD_DIMS``: equal dims 32, 64 and 128, and MLA's
+96 / 64 (MiniCPM3) and 192 / 128 (DeepSeek-V3); any other pair raises
+``ValueError``. The Pallas kernel takes v's head dim from q's, so for
+Dqk != Dv it is not the oracle: the JAX XLA path
+(``xla_impl.flash_attention_xla``) is, and the plain version computes it.
 """
 from __future__ import annotations
 
@@ -79,23 +88,25 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name}'s last dimension "
                              f"must be contiguous (stride {t.stride(-1)})")
-    B, Sq, H, D = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+    B, Sq, H, Dqk = q.shape
+    Dv = v.shape[3]
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != Dqk:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not "
                          f"match")
     if H % k.shape[2]:
         raise ValueError(f"flash_attention: {H} query heads are not a "
                          f"multiple of {k.shape[2]} kv heads")
-    if D not in cuda_kernels.HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in "
+    if (Dqk, Dv) not in cuda_kernels.HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {Dqk} for q and k "
+                         f"with {Dv} for v is not a built (Dqk, Dv) pair "
                          f"{cuda_kernels.HEAD_DIMS}")
 
 
 def flash_attention(
-    q: torch.Tensor,               # (B, Sq, H, D)
-    k: torch.Tensor,               # (B, Sk, KV, D)
-    v: torch.Tensor,               # (B, Sk, KV, D)
+    q: torch.Tensor,               # (B, Sq, H, Dqk)
+    k: torch.Tensor,               # (B, Sk, KV, Dqk)
+    v: torch.Tensor,               # (B, Sk, KV, Dv)
     *,
     causal: bool = True,
     window: int = 0,
@@ -105,8 +116,7 @@ def flash_attention(
     """Forward attention: the kernel for CUDA tensors, the plain version
     for CPU tensors. Raises on any other device, dtype, layout or head dim
     the kernel does not take, and when the build or the launch fails."""
-    D = q.shape[-1]
-    scale = scale if scale is not None else D ** -0.5
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return plain(q, k, v, causal=causal, window=window,
                      q_offset=q_offset, scale=scale)
@@ -122,7 +132,8 @@ def flash_attention(
     if n_y > MAX_GRID_Y:
         raise ValueError(f"flash_attention: {n_y} blocks along the grid's y "
                          f"axis exceed {MAX_GRID_Y}")
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Sq, H, v.shape[3]), dtype=q.dtype,
+                      device=q.device)
     if out.numel() == 0:
         return out
     cuda_kernels.flash_attention_fwd(q, k, v, out, kernel=kernel,

@@ -1,19 +1,24 @@
-"""GQA attention mixer (RoPE / sliding window / QKV bias) with a KV cache.
+"""Attention mixers with a decode cache: GQA (RoPE / sliding window / QKV
+bias) and MLA (multi-head latent attention).
 
-The counterpart of the GQA half of ``repro.models.attention``:
+The counterpart of ``repro.models.attention`` but for cross attention
+(which comes with the encoder-decoder slice, ``ROADMAP.md``): the GQA half
 ``gqa_init``, ``gqa_init_cache``, ``cache_capacity``, ``_ring_write`` and
-``gqa_apply``, with mode in {"train", "prefill", "decode"}:
+``gqa_apply``, and the MLA half ``mla_init``, ``mla_init_cache``,
+``_mla_q``, ``_mla_ckv`` and ``mla_apply``, with mode in
+{"train", "prefill", "decode"}:
 
   * train   -- full causal self-attention, no cache.
   * prefill -- causal self-attention AND fills the cache.
   * decode  -- single-token query against the cache (S_q == 1).
 
-Caches are plain dicts of tensors. SWA layers use a ring buffer of size
-``window`` (rope is applied at write time, so ring order is irrelevant).
-Where the reference returns a new cache (``.at[].set``, with the cache
-donated to the step), the port writes into the preallocated cache in
-place and returns the same dict. MLA and cross attention come with their
-slices (``ROADMAP.md``).
+Caches are plain dicts of tensors. GQA's SWA layers use a ring buffer of
+size ``window`` (rope is applied at write time, so ring order is
+irrelevant); MLA's cache holds the compressed latent ``c`` and the rope
+key ``kr``, ``max_len`` long, and its decode attends against it in the
+absorbed form. Where the reference returns a new cache (``.at[].set`` and
+``dynamic_update_slice``, with the cache donated to the step), the port
+writes into the preallocated cache in place and returns the same dict.
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.params import dense_init, param, zeros
+from repro_torch.kernels.ref import NEG_INF
+from repro_torch.models.params import dense_init, ones, param, zeros
 from repro_torch.models.rope import apply_rope
 
 Cache = Optional[Dict[str, Any]]
@@ -164,4 +170,163 @@ def gqa_apply(
         raise ValueError(mode)
 
     out = out.reshape(B, S, H * Dh)
+    return out @ p["wo"], new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def mla_init(gen: torch.Generator, cfg: ModelConfig, *, device=None
+             ) -> nn.ParameterDict:
+    m = cfg.mla
+    D = cfg.d_model
+    H = cfg.padded_heads()
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    dt = getattr(torch, cfg.param_dtype)
+    kw = dict(dtype=dt, device=device)
+    p = {}
+    if m.q_lora_rank > 0:
+        p["wq_a"] = dense_init(gen, D, m.q_lora_rank, **kw)
+        p["q_norm"] = ones((m.q_lora_rank,), dt, device)
+        p["wq_b"] = dense_init(gen, m.q_lora_rank, H * (dn + dr), **kw)
+    else:
+        p["wq"] = dense_init(gen, D, H * (dn + dr), **kw)
+    p["wkv_a"] = dense_init(gen, D, m.kv_lora_rank + dr, **kw)
+    p["kv_norm"] = ones((m.kv_lora_rank,), dt, device)
+    p["wkv_b"] = dense_init(gen, m.kv_lora_rank, H * (dn + dv), **kw)
+    p["wo"] = dense_init(gen, H * dv, D,
+                         std=1.0 / math.sqrt(2 * cfg.num_layers * H * dv),
+                         **kw)
+    return nn.ParameterDict({k: param(v) for k, v in p.items()})
+
+
+def mla_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+                   device=None) -> Dict[str, torch.Tensor]:
+    m = cfg.mla
+    dt = dtype or getattr(torch, cfg.dtype)
+    return {
+        "c": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dt,
+                         device=device),
+        "kr": torch.zeros((batch, max_len, m.qk_rope_head_dim), dtype=dt,
+                          device=device),
+    }
+
+
+def _mla_q(p, x, cfg: ModelConfig, positions, B, S, *, backend: str):
+    m = cfg.mla
+    H = cfg.padded_heads()
+    dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
+    if m.q_lora_rank > 0:
+        q = ops.rmsnorm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps,
+                        backend=backend) @ p["wq_b"]
+    else:
+        q = x @ p["wq"]
+    q = q.reshape(B, S, H, dn + dr)
+    qn, qr = q[..., :dn], q[..., dn:]
+    if cfg.rope != "none":
+        qr = apply_rope(qr, positions, cfg.rope_theta)
+    return qn, qr
+
+
+def _mla_ckv(p, x, cfg: ModelConfig, positions, B, S, *, backend: str):
+    m = cfg.mla
+    dr = m.qk_rope_head_dim
+    ckv = x @ p["wkv_a"]                                     # (B,S,lora+dr)
+    c, kr = ckv[..., :m.kv_lora_rank], ckv[..., m.kv_lora_rank:]
+    # K5's wrapper takes contiguous rows only: the slice is copied
+    c = ops.rmsnorm(c.contiguous(), p["kv_norm"], cfg.norm_eps,
+                    backend=backend)
+    if cfg.rope != "none":
+        kr = apply_rope(kr.reshape(B, S, 1, dr), positions,
+                        cfg.rope_theta).reshape(B, S, dr)
+    return c, kr
+
+
+def _write_at(cache_t: torch.Tensor, new: torch.Tensor,
+              start: Union[int, torch.Tensor]) -> None:
+    """``dynamic_update_slice(cache, new.astype(cache.dtype), (0, start,
+    0))`` in place: positions [start, start + S) of every row (the cache
+    is ``max_len`` long, so the slice fits)."""
+    start = int(start)
+    cache_t[:, start:start + new.shape[1]] = new.to(cache_t.dtype)
+
+
+def mla_apply(
+    p: nn.ParameterDict,
+    x: torch.Tensor,               # (B, S, D)
+    *,
+    cfg: ModelConfig,
+    positions: torch.Tensor,       # (B, S) absolute positions
+    mode: str = "train",
+    cache: Cache = None,
+    kv_len: Optional[torch.Tensor] = None,  # (B,) valid length (decode)
+    pos0: Union[int, torch.Tensor] = 0,     # position of x[:, 0] (cache write)
+    causal: bool = True,
+    backend: str = "cuda",
+) -> Tuple[torch.Tensor, Cache]:
+    """Train and prefill expand the latent to per-head keys and values and
+    attend (K4 on ``backend="cuda"``, q/k head dim dn + dr, v head dim dv,
+    v a slice of the expanded product); prefill also writes ``c`` and
+    ``kr`` into the cache at ``pos0``, rounded to the cache's dtype there
+    and only there. Decode is the absorbed form, in float32 as the
+    reference computes it: q_nope through W_uk into the latent space,
+    scores against the cached latent plus the rope part, the ``kv_len``
+    mask, softmax, the latent output through W_uv, then the cast back."""
+    m = cfg.mla
+    B, S, D = x.shape
+    H = cfg.padded_heads()
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    scale = (dn + dr) ** -0.5
+
+    qn, qr = _mla_q(p, x, cfg, positions, B, S, backend=backend)
+
+    if mode in ("train", "prefill"):
+        c, kr = _mla_ckv(p, x, cfg, positions, B, S, backend=backend)
+        kv = (c @ p["wkv_b"]).reshape(B, S, H, dn + dv)
+        kn, v = kv[..., :dn], kv[..., dn:]
+        k = torch.cat([kn, kr[:, :, None, :].expand(B, S, H, dr)], -1)
+        q = torch.cat([qn, qr], -1)
+        out = ops.attention(q, k, v, causal=causal, scale=scale,
+                            backend=backend)
+        new_cache = None
+        if mode == "prefill":
+            _write_at(cache["c"], c, pos0)
+            _write_at(cache["kr"], kr, pos0)
+            new_cache = cache
+    elif mode == "decode":
+        if S != 1 or cache is None:
+            raise ValueError(f"decode takes one token and a cache, got "
+                             f"S={S} and cache={cache is not None}")
+        c_new, kr_new = _mla_ckv(p, x, cfg, positions, B, S, backend=backend)
+        _write_at(cache["c"], c_new, pos0)
+        _write_at(cache["kr"], kr_new, pos0)
+        cc, ckr = cache["c"], cache["kr"]
+        C = cc.shape[1]
+        if kv_len is None:
+            kv_len = torch.full((B,), int(pos0) + 1, dtype=torch.int32,
+                                device=x.device)
+        # absorbed decode: q_nope into the latent space once, then attend
+        # against the compressed cache (never expanding all S positions)
+        wkv_b = p["wkv_b"].reshape(m.kv_lora_rank, H, dn + dv)
+        w_uk = wkv_b[..., :dn]                               # (lora, H, dn)
+        w_uv = wkv_b[..., dn:]                               # (lora, H, dv)
+        ccf = cc.float()
+        q_lat = torch.einsum("bqhd,lhd->bqhl", qn.float(), w_uk.float())
+        s = (torch.einsum("bqhl,bsl->bhqs", q_lat, ccf) +
+             torch.einsum("bqhd,bsd->bhqs", qr.float(), ckr.float())
+             ) * scale                                       # (B,H,1,C)
+        mask = torch.arange(C, device=x.device)[None, :] < \
+            kv_len.to(x.device)[:, None]                     # (B, C)
+        s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
+        w = torch.softmax(s, dim=-1)
+        o_lat = torch.einsum("bhqs,bsl->bqhl", w, ccf)
+        out = torch.einsum("bqhl,lhd->bqhd", o_lat,
+                           w_uv.float()).to(x.dtype)
+        new_cache = cache
+    else:
+        raise ValueError(mode)
+
+    out = out.reshape(B, S, H * dv)
     return out @ p["wo"], new_cache

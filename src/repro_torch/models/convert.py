@@ -6,9 +6,13 @@ no JAX) and returns a ``Model`` holding the same values. bfloat16 leaves
 arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses, so
 every leaf goes through float32 (exact for bfloat16) and is cast to the
 configuration's ``param_dtype`` on the device. The body slots' leading
-``(n_periods, ...)`` axis is unstacked into per-layer blocks. Every leaf
-lands exactly once: a leaf with no place in the model, a model parameter
-no leaf filled, or a shape that differs raises ``ValueError``.
+``(n_periods, ...)`` axis is unstacked into per-layer blocks; the
+``prefix`` layers (DeepSeek-V3's dense ones) and the ``mtp`` subtree map
+by name (``mtp/block/mixer/wq_a`` to ``mtp.block.mixer.wq_a``), and so do
+an MLA mixer's leaves (``wq_a``, ``q_norm``, ``wq_b`` or ``wq``,
+``wkv_a``, ``kv_norm``, ``wkv_b``, ``wo``). Every leaf lands exactly once:
+a leaf with no place in the model, a model parameter no leaf filled, or a
+shape that differs raises ``ValueError``.
 """
 from __future__ import annotations
 

@@ -1,16 +1,20 @@
 """Model assembly: the decoder-only transformer, serving subset.
 
 The counterpart of ``repro.models.transformer`` for stacks whose layers
-are GQA attention (RoPE or none) or the Mamba mixer, each followed by a
-dense MLP or a dropless MoE, with RMSNorm (``qwen2-7b``, ``stablelm-12b``,
-``starcoder2-15b``, ``mixtral-8x7b``, ``jamba-v0.1-52b``), or RWKV-6 time
+are GQA attention (RoPE or none), MLA or the Mamba mixer, each followed by
+a dense MLP or a dropless MoE, with RMSNorm (``qwen2-7b``,
+``stablelm-12b``, ``starcoder2-15b``, ``mixtral-8x7b``,
+``jamba-v0.1-52b``, ``minicpm3-4b``, ``deepseek-v3-671b``), or RWKV-6 time
 mix + channel mix with LayerNorm and ``ln0`` (``rwkv6-3b``). The reference
 stacks each period slot's parameters ``(n_periods, ...)`` and runs the
 depth as one ``lax.scan``; here each layer is a block in an
 ``nn.ModuleList`` walked by a Python loop, and the logical-sharding
-annotations drop out (one card, no mesh). Layers the port lacks -- MLA,
-cross attention, M-RoPE, learned positions, the vision frontend, MTP --
-are refused when the model is built (:func:`check_supported`).
+annotations drop out (one card, no mesh). A configuration with
+``mtp_depth > 0`` (DeepSeek-V3) carries the multi-token-prediction
+parameters, ``Params.mtp``, as the reference does; serving does not use
+them, and their loss comes with the training slice. Layers the port lacks
+-- cross attention, M-RoPE, learned positions, the vision frontend -- are
+refused when the model is built (:func:`check_supported`).
 
 Modes:
   * ``train``   -- full causal pass, logits, no cache (losses come with
@@ -19,8 +23,9 @@ Modes:
   * ``decode``  -- one new token against the cache (S == 1).
 
 The cache is a list with one dict per layer, written in place:
-``{"attn": {"k", "v"}}`` for GQA, ``{"attn": {"conv", "h"}}`` for Mamba,
-``{"attn": {"last_x", "state"}, "mlp": {"last_x"}}`` for RWKV-6.
+``{"attn": {"k", "v"}}`` for GQA, ``{"attn": {"c", "kr"}}`` for MLA,
+``{"attn": {"conv", "h"}}`` for Mamba, ``{"attn": {"last_x", "state"},
+"mlp": {"last_x"}}`` for RWKV-6.
 """
 from __future__ import annotations
 
@@ -107,6 +112,8 @@ def layer_layout(cfg: ModelConfig) -> Tuple[int, List[LayerKind], int]:
 
 SUPPORTED_KINDS = (LayerKind("gqa", "dense", False),
                    LayerKind("gqa", "moe", False),
+                   LayerKind("mla", "dense", False),
+                   LayerKind("mla", "moe", False),
                    LayerKind("mamba", "dense", False),
                    LayerKind("mamba", "moe", False),
                    LayerKind("rwkv", "cmix", False))
@@ -124,17 +131,16 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append("M-RoPE")
     elif cfg.rope == "none" and cfg.ssm is None:
         missing.append("learned absolute positions (pos_embed)")
-    if cfg.mtp_depth > 0:
-        missing.append("multi-token prediction")
     kinds = {kind_for_layer(cfg, i) for i in range(cfg.num_layers)}
     for k in sorted(kinds - set(SUPPORTED_KINDS), key=str):
         missing.append(f"{k.mixer} mixer + {k.mlp} mlp layers")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet; the port "
-            f"serves decoders of GQA or Mamba layers with dense or MoE "
-            f"MLPs, and RWKV-6 (ROADMAP.md, Queue 1, lists what comes "
-            f"next)")
+            f"serves decoders of GQA, MLA or Mamba layers with dense or "
+            f"MoE MLPs, and RWKV-6; it refuses encoder-decoders, the "
+            f"vision and audio frontends, M-RoPE and learned absolute "
+            f"positions (ROADMAP.md, Queue 1, lists what comes next)")
 
 
 # ---------------------------------------------------------------------------
@@ -181,6 +187,8 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: LayerKind, *,
         p["mixer"] = ssmm.rwkv_tmix_init(gen, cfg, device=device)
     elif kind.mixer == "mamba":
         p["mixer"] = ssmm.mamba_init(gen, cfg, device=device)
+    elif kind.mixer == "mla":
+        p["mixer"] = attn.mla_init(gen, cfg, device=device)
     else:
         p["mixer"] = attn.gqa_init(gen, cfg, device=device)
     if kind.mlp == "cmix":
@@ -220,6 +228,9 @@ def block_cache(cfg: ModelConfig, kind: LayerKind, batch: int, max_len: int,
                                 device=device),
             "h": torch.zeros((batch, Din, s.d_state), dtype=torch.float32,
                              device=device)}}
+    if kind.mixer == "mla":
+        return {"attn": attn.mla_init_cache(cfg, batch, max_len,
+                                            device=device)}
     return {"attn": attn.gqa_init_cache(cfg, batch, max_len, device=device)}
 
 
@@ -251,6 +262,11 @@ def block_apply(
         out, nc = ssmm.mamba_apply(
             p["mixer"], h, cfg=cfg, mode=mode,
             cache=cache["attn"] if cache else None, backend=backend)
+    elif kind.mixer == "mla":
+        out, nc = attn.mla_apply(
+            p["mixer"], h, cfg=cfg, positions=positions, mode=mode,
+            cache=cache["attn"] if cache else None, kv_len=kv_len, pos0=pos0,
+            causal=causal, backend=backend)
     else:
         out, nc = attn.gqa_apply(
             p["mixer"], h, cfg=cfg, positions=positions, mode=mode,
@@ -278,21 +294,41 @@ def block_apply(
 # ---------------------------------------------------------------------------
 
 
+class MTP(nn.Module):
+    """The multi-token-prediction head's parameters (the reference's
+    ``p["mtp"]``): ``proj`` (2 D, D), ``norm_h``, ``norm_e``, one ``block``
+    of the last layer's kind and ``final_norm``. Built and loaded, unused
+    by serving, as in the reference's forward."""
+
+    def __init__(self, proj: torch.Tensor, norm_h: nn.ParameterDict,
+                 norm_e: nn.ParameterDict, block: nn.ModuleDict,
+                 final_norm: nn.ParameterDict):
+        super().__init__()
+        self.proj = param(proj)
+        self.norm_h = norm_h
+        self.norm_e = norm_e
+        self.block = block
+        self.final_norm = final_norm
+
+
 class Params(nn.Module):
     """The decoder's parameters: ``embed``, ``ln0`` (RWKV-6's norm of the
     embeddings; absent elsewhere), ``blocks`` (one per layer),
-    ``final_norm`` and ``lm_head`` (absent with tied embeddings)."""
+    ``final_norm``, ``lm_head`` (absent with tied embeddings) and ``mtp``
+    (with ``mtp_depth > 0`` only)."""
 
     def __init__(self, embed: torch.Tensor, blocks: List[nn.ModuleDict],
                  final_norm: nn.ParameterDict,
                  lm_head: Optional[torch.Tensor],
-                 ln0: Optional[nn.ParameterDict] = None):
+                 ln0: Optional[nn.ParameterDict] = None,
+                 mtp: Optional[MTP] = None):
         super().__init__()
         self.embed = param(embed)
         self.ln0 = ln0
         self.blocks = nn.ModuleList(blocks)
         self.final_norm = final_norm
         self.lm_head = param(lm_head) if lm_head is not None else None
+        self.mtp = mtp
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, *, device=None
@@ -312,7 +348,15 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *, device=None
     if not cfg.tie_embeddings:
         lm_head = dense_init(gen, D, Vp, std=1.0 / math.sqrt(D), dtype=dt,
                              device=device)
-    return Params(embed, blocks, final_norm, lm_head, ln0)
+    mtp = None
+    if cfg.mtp_depth > 0:
+        mtp = MTP(dense_init(gen, 2 * D, D, dtype=dt, device=device),
+                  _norm_init(cfg, False, device=device),
+                  _norm_init(cfg, False, device=device),
+                  block_init(gen, cfg, kind_for_layer(cfg, cfg.num_layers - 1),
+                             device=device),
+                  _norm_init(cfg, False, device=device))
+    return Params(embed, blocks, final_norm, lm_head, ln0, mtp)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None

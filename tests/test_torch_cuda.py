@@ -326,15 +326,23 @@ SMOKE = _load_chip_smoke()
 # operations, so they are expected to agree bit for bit). K4 runs
 # flash_fwd_wgmma_kernel for bfloat16 and flash_fwd_kernel for float32.
 
-# (B, Sq, Sk, H, KV, D, causal, window, q_offset), then chip_smoke.py's
-# cases (the served shapes among them)
+# (B, Sq, Sk, H, KV, Dqk, Dv, causal, window, q_offset, v_dn): v is the
+# slice [..., v_dn:] of a (B, Sk, KV, v_dn + Dv) tensor where v_dn > 0, as
+# MLA makes it; then chip_smoke.py's cases (the served shapes among them)
 ATTN_CASES = [
-    (2, 100, 100, 4, 2, 32, True, 0, 0),
-    (1, 64, 200, 7, 1, 64, True, 0, 136),
-    (1, 130, 130, 2, 2, 128, True, 48, 0),
-    (2, 70, 90, 4, 4, 64, False, 0, 0),
-] + [(B, Sq, Sk, H, KV, D, causal, window, q_off)
-     for _, (B, Sq, Sk, H, KV, D), causal, window, q_off in SMOKE.ATTN_CASES]
+    (2, 100, 100, 4, 2, 32, 32, True, 0, 0, 0),
+    (1, 64, 200, 7, 1, 64, 64, True, 0, 136, 0),
+    (1, 130, 130, 2, 2, 128, 128, True, 48, 0, 0),
+    (2, 70, 90, 4, 4, 64, 64, False, 0, 0, 0),
+    # MLA's head dims: ragged Sq, a fused v, q_offset, a window, GQA
+    (2, 100, 100, 4, 4, 96, 64, True, 0, 0, 64),
+    (1, 130, 130, 2, 2, 192, 128, True, 0, 0, 128),
+    (1, 77, 200, 3, 3, 96, 64, True, 0, 123, 64),
+    (1, 150, 150, 4, 2, 192, 128, True, 40, 0, 0),
+    (2, 70, 90, 4, 4, 96, 64, False, 0, 0, 0),
+] + [(B, Sq, Sk, H, KV, Dqk, Dv, causal, window, q_off, v_dn)
+     for _, (B, Sq, Sk, H, KV, Dqk, Dv), causal, window, q_off, v_dn
+     in SMOKE.ATTN_CASES]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -343,11 +351,12 @@ def test_torch_cuda_flash_attention_matches_plain_version(card, dtype, case):
     from repro_torch.kernels import cuda_kernels as MK
     from repro_torch.kernels.flash_attention import (flash_attention, plain,
                                                      select_kernel)
-    B, Sq, Sk, H, KV, D, causal, window, q_off = case
+    B, Sq, Sk, H, KV, Dqk, Dv, causal, window, q_off, v_dn = case
     gen = torch.Generator(device=card).manual_seed(sum(case[:6]))
-    q = torch.randn(B, Sq, H, D, generator=gen, device=card).to(dtype)
-    k = torch.randn(B, Sk, KV, D, generator=gen, device=card).to(dtype)
-    v = torch.randn(B, Sk, KV, D, generator=gen, device=card).to(dtype)
+    q = torch.randn(B, Sq, H, Dqk, generator=gen, device=card).to(dtype)
+    k = torch.randn(B, Sk, KV, Dqk, generator=gen, device=card).to(dtype)
+    v = torch.randn(B, Sk, KV, v_dn + Dv, generator=gen,
+                    device=card).to(dtype)[..., v_dn:]
     assert select_kernel(q, k, v) == ("flash_fwd_wgmma_kernel"
                                       if dtype == torch.bfloat16
                                       else "flash_fwd_kernel")
@@ -357,6 +366,7 @@ def test_torch_cuda_flash_attention_matches_plain_version(card, dtype, case):
     torch.cuda.synchronize()
     assert MK.launch_counts()["flash_attention"] == before + 1
     want = plain(q, k, v, causal=causal, window=window, q_offset=q_off)
+    assert got.shape == (B, Sq, H, Dv) and got.is_contiguous()
     t = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=t, atol=t)
 
@@ -431,6 +441,10 @@ def test_torch_cuda_model_wrappers_refuse_what_the_kernels_do_not_take(card):
     q = torch.randn(1, 8, 2, 48, device=card)
     with pytest.raises(ValueError, match="head dim 48"):
         flash_attention(q, q, q)
+    # a (Dqk, Dv) pair that is not built is refused, naming the list
+    q = torch.randn(1, 8, 2, 96, device=card)
+    with pytest.raises(ValueError, match=r"\(96, 64\), \(192, 128\)"):
+        flash_attention(q, q, q)
     q = torch.randn(1, 8, 2, 32, device=card, dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or torch.bfloat16"):
         flash_attention(q, q, q)
@@ -459,6 +473,50 @@ def test_torch_cuda_smoke_generate_matches_torch_backend(card):
                                   "wkv6": 0, "mamba_scan": 0}
     b, _ = generate(arch="qwen2-7b", prompt_tokens=prompts, model=model,
                     max_new_tokens=6, backend="torch")
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("Dqk,Dv", [(96, 64), (192, 128)])
+def test_torch_cuda_flash_wgmma_shared_memory_fits_the_block(card, Dqk, Dv):
+    """The bfloat16 kernel's two-stage ring at MLA's head dims: V tiles
+    sized by Dv, Q and K by Dqk padded to whole 64-column boxes."""
+    from repro_torch.kernels import cuda_kernels as MK
+    pad = lambda d: -(-d // 64) * 64
+    ring = 128 * pad(Dqk) * 2 * 3 + 2 * 128 * pad(Dv) * 2
+    assert MK.flash_wgmma_smem_bytes(Dqk, Dv) == ring + 8 * 9 + 1024
+    assert MK.flash_wgmma_smem_bytes(Dqk, Dv) <= 232_448
+    assert MK.flash_wgmma_smem_bytes(96, 96) == -1
+
+
+def test_torch_cuda_smoke_minicpm3_prefill_and_decode_match_torch_backend(
+        card):
+    """MLA on the card with the kernels: MiniCPM3 at full width cut to 2
+    layers, float32, prefill logits within 1e-4 relative of the plain
+    versions' and the same greedy tokens through ``generate``; the launch
+    counts are K4 once per layer in the prefill, none in a decode step,
+    and K5 4 per layer and the final norm in every forward."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.kernels import cuda_kernels as MK
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.api import build_model
+    cfg = get_model_config("minicpm3-4b").replace(
+        num_layers=2, dtype="float32", param_dtype="float32")
+    model = build_model(cfg)
+    model.init(1)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                size=(2, 96))
+    batch = {"tokens": torch.as_tensor(prompts, device=card)}
+    with torch.inference_mode():
+        lc, _ = model.prefill(batch, 104)
+        lt, _ = model.prefill(batch, 104, backend="torch")
+    assert float((lc - lt).abs().max() / lt.abs().max()) <= 1e-4
+    MK.reset_launch_counts()
+    a, _ = generate(arch="minicpm3-4b", prompt_tokens=prompts, model=model,
+                    max_new_tokens=8)
+    assert MK.launch_counts() == {"flash_attention": 2, "rmsnorm": 9 * 9,
+                                  "wkv6": 0, "mamba_scan": 0}
+    b, _ = generate(arch="minicpm3-4b", prompt_tokens=prompts, model=model,
+                    max_new_tokens=8, backend="torch")
     assert torch.equal(a, b)
 
 

@@ -251,3 +251,21 @@ def test_torch_kernel_symbols_k4_rule_refuses_what_tma_cannot_read():
     two = base.as_strided((1, 64, 2, 64), (4096, 64, 3, 1))
     with pytest.raises(ValueError, match="stride 3 along dimension 2"):
         FA.select_kernel(two, two, two)
+
+
+def test_torch_kernel_symbols_k4_head_dim_pairs_are_the_built_ones():
+    """K4's wrapper takes exactly the (Dqk, Dv) pairs the CUDA source
+    instantiates and sizes (``K4_PAIR`` in ``model_flash_attention_fwd``,
+    ``FwSmem`` in ``model_flash_wgmma_smem_bytes``), and
+    ``chip_smoke.py``'s cases hold every pair on the card."""
+    from repro_torch.kernels import cuda_kernels as MK
+    model = (CSRC / "model_kernels.cu").read_text()
+    dispatched = {(int(a), int(b)) for a, b in
+                  re.findall(r"^\s*K4_PAIR\((\d+), (\d+)\)", model, re.M)}
+    sized = {(int(a), int(b)) for a, b in
+             re.findall(r"return FwSmem<(\d+), (\d+)>::BYTES", model)}
+    assert dispatched == sized == set(MK.HEAD_DIMS)
+    assert {(96, 64), (192, 128)} <= set(MK.HEAD_DIMS)
+    cased = {shape[5:] for _, shape, *_ in SMOKE.ATTN_CASES}
+    assert cased == set(MK.HEAD_DIMS)
+

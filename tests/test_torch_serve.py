@@ -82,8 +82,8 @@ def test_torch_generate_refuses_what_the_slice_lacks():
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
         serve.generate(arch="seamless-m4t-large-v2", prompt_tokens=prompts,
                        device="cpu", backend="torch")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        serve.generate(arch="minicpm3-4b", prompt_tokens=prompts,
+    with pytest.raises(NotImplementedError, match="M-RoPE.*ROADMAP.md"):
+        serve.generate(arch="qwen2-vl-2b", prompt_tokens=prompts,
                        device="cpu", backend="torch")
     model = serve.build_model(get_model_config("stablelm-12b", smoke=True),
                               device="cpu")

@@ -48,22 +48,26 @@ def generate(
     device=None,
     backend: str = "cuda",
     stats: Optional[Dict[str, Any]] = None,
+    enc_embeds=None,                   # (B, S_enc, D), encoder-decoders
 ) -> Tuple[torch.Tensor, Dict[str, float]]:
     """Greedy decode. Returns (tokens (B, S_prompt+new), agent summary).
 
     ``model`` stands for the reference's ``params``: a ``Model`` holding
     weights, whose configuration is then the one served (it must be
     ``arch``'s) and whose device is used; without it the ``arch`` model is
-    built on ``device`` and initialised from ``seed``. ``stats``, when
-    given, receives ``prefill_s`` and ``decode_s`` (one entry per step),
-    host clock around synchronised work."""
+    built on ``device`` and initialised from ``seed``. An encoder-decoder
+    needs ``enc_embeds`` (``ValueError`` without them): they are encoded
+    once, and the memory goes into the prefill and every decode step.
+    ``stats``, when given, receives ``prefill_s`` (the encoder's time
+    included) and ``decode_s`` (one entry per step), host clock around
+    synchronised work."""
     cfg = model.cfg if model is not None else \
         get_model_config(arch, smoke=smoke)
     if cfg.name != get_model_config(arch).name:
         raise ValueError(f"model is {cfg.name!r}, arch is {arch!r}")
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            "encoder-decoder serving is not ported yet (ROADMAP.md, Queue 1)")
+    if cfg.is_encoder_decoder and enc_embeds is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: serving it "
+                         f"needs enc_embeds")
     if model is None:
         model = build_model(cfg, device=device)
         model.init(seed)
@@ -83,7 +87,14 @@ def generate(
 
     with torch.inference_mode():
         t0 = time.perf_counter()
-        logits, cache = prefill({"tokens": tokens})
+        batch = {"tokens": tokens}
+        memory = None
+        if cfg.is_encoder_decoder:
+            if not isinstance(enc_embeds, torch.Tensor):
+                enc_embeds = torch.from_numpy(np.asarray(enc_embeds))
+            memory = model.encode(enc_embeds.to(dev), backend=backend)
+            batch["memory"] = memory
+        logits, cache = prefill(batch)
         _sync(dev)
         prefill_s = time.perf_counter() - t0
         out = [tokens]
@@ -96,7 +107,7 @@ def generate(
             def dispatch():
                 nonlocal cache
                 t = time.perf_counter()
-                lg, cache = decode(tok, S + i, kv_len, cache)
+                lg, cache = decode(tok, S + i, kv_len, cache, memory)
                 _sync(dev)
                 step_s.append(time.perf_counter() - t)
                 return lg
@@ -123,9 +134,14 @@ def main() -> None:
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size,
                            size=(args.batch, args.prompt_len))
+    enc = None
+    if cfg.is_encoder_decoder:
+        enc = (rng.standard_normal((args.batch, args.prompt_len,
+                                    cfg.d_model)) * 0.02).astype(np.float32)
     toks, summary = generate(arch=args.arch, prompt_tokens=prompts,
                              max_new_tokens=args.max_new_tokens,
-                             device=args.device, backend=args.backend)
+                             device=args.device, backend=args.backend,
+                             enc_embeds=enc)
     print("generated shape:", tuple(toks.shape))
     print(json.dumps(summary, indent=1, default=str))
 

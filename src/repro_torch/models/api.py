@@ -2,7 +2,9 @@
 assembly, on an explicit device.
 
 The counterpart of ``repro.models.api.Model`` for serving: ``init`` /
-``init_cache`` / ``forward`` / ``prefill`` / ``decode_step``. The
+``init_cache`` / ``forward`` / ``encode`` / ``prefill`` / ``decode_step``.
+``encode`` is the encoder-decoder's encoder (the reference's
+``transformer.encode``, which its ``generate`` calls directly). The
 reference's ``Model`` is a stateless facade whose methods take the
 parameter pytree; here the module holds its parameters (``params``, set
 by :meth:`Model.init` or :func:`repro_torch.models.convert.params_from_jax`)
@@ -62,14 +64,20 @@ class Model(nn.Module):
         return tfm.prefill(self._p(), batch, cfg=self.cfg, max_len=max_len,
                            backend=backend)
 
-    def decode_step(self, token, pos, cache, kv_len=None, *,
+    def encode(self, enc_embeds: torch.Tensor, *, backend: str = "cuda"
+               ) -> torch.Tensor:
+        """The encoder-decoder's memory (B, S_enc, D) from frame
+        embeddings (B, S_enc, D)."""
+        return tfm.encode(self._p(), self.cfg, enc_embeds, backend=backend)
+
+    def decode_step(self, token, pos, cache, kv_len=None, memory=None, *,
                     backend: str = "cuda") -> Tuple[torch.Tensor, tfm.Cache]:
         return tfm.decode_step(self._p(), token, pos, cache, cfg=self.cfg,
-                               kv_len=kv_len, backend=backend)
+                               kv_len=kv_len, memory=memory, backend=backend)
 
 
 def build_model(cfg: ModelConfig, *, device=None) -> Model:
-    """Raises ``NotImplementedError`` for a configuration whose layers this
-    slice of the port does not have, ``RuntimeError`` for ``device=None``
-    without a card."""
+    """Raises ``NotImplementedError`` for a configuration with a layer kind
+    the port does not build (every configuration of the registry has only
+    built kinds), ``RuntimeError`` for ``device=None`` without a card."""
     return Model(cfg, device=device)

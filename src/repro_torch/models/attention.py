@@ -1,12 +1,14 @@
-"""Attention mixers with a decode cache: GQA (RoPE / sliding window / QKV
-bias) and MLA (multi-head latent attention).
+"""Attention mixers: GQA (RoPE / M-RoPE / sliding window / QKV bias) and
+MLA (multi-head latent attention) with a decode cache, and the
+encoder-decoder's cross attention.
 
-The counterpart of ``repro.models.attention`` but for cross attention
-(which comes with the encoder-decoder slice, ``ROADMAP.md``): the GQA half
-``gqa_init``, ``gqa_init_cache``, ``cache_capacity``, ``_ring_write`` and
-``gqa_apply``, and the MLA half ``mla_init``, ``mla_init_cache``,
-``_mla_q``, ``_mla_ckv`` and ``mla_apply``, with mode in
-{"train", "prefill", "decode"}:
+The counterpart of ``repro.models.attention``: the GQA half ``gqa_init``,
+``gqa_init_cache``, ``cache_capacity``, ``_ring_write`` and ``gqa_apply``;
+the MLA half ``mla_init``, ``mla_init_cache``, ``_mla_q``, ``_mla_ckv``
+and ``mla_apply``; and ``cross_init`` / ``cross_apply``, which attend
+over the encoder's output and keep no cache (K and V are computed from
+the memory on every call, in decode too, as the reference does). The
+self-attention mixers take mode in {"train", "prefill", "decode"}:
 
   * train   -- full causal self-attention, no cache.
   * prefill -- causal self-attention AND fills the cache.
@@ -32,7 +34,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.params import dense_init, ones, param, zeros
-from repro_torch.models.rope import apply_rope
+from repro_torch.models.rope import apply_mrope, apply_rope
 
 Cache = Optional[Dict[str, Any]]
 
@@ -60,9 +62,15 @@ def gqa_init(gen: torch.Generator, cfg: ModelConfig, *, device=None
     return nn.ParameterDict({k: param(v) for k, v in p.items()})
 
 
-def _rope_qk(q, k, cfg: ModelConfig, positions):
+def _rope_qk(q, k, cfg: ModelConfig, positions, mrope_positions=None):
+    """M-RoPE only when the configuration has it and ``mrope_positions``
+    (3, B, S) are given; plain RoPE on ``positions`` otherwise (an M-RoPE
+    model's decode steps, as in the reference)."""
     if cfg.rope == "none":
         return q, k
+    if cfg.rope == "mrope" and mrope_positions is not None:
+        return (apply_mrope(q, mrope_positions, cfg.rope_theta),
+                apply_mrope(k, mrope_positions, cfg.rope_theta))
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta))
 
@@ -117,13 +125,15 @@ def gqa_apply(
     cache: Cache = None,
     kv_len: Optional[torch.Tensor] = None,  # (B,) valid length (decode)
     pos0: Union[int, torch.Tensor] = 0,     # position of x[:, 0] (cache write)
+    mrope_positions: Optional[torch.Tensor] = None,   # (3, B, S) M-RoPE
     causal: bool = True,
     backend: str = "cuda",
 ) -> Tuple[torch.Tensor, Cache]:
     """``pos0`` is the position of the first token, the scalar the
     reference reads back from ``positions[0, 0]``; the caller passes it so
     that a Python int stays on the host and the cache write needs no
-    device-to-host copy."""
+    device-to-host copy. The cache holds k after its rotation, so the
+    decode steps after an M-RoPE prefill read the M-RoPE keys."""
     B, S, D = x.shape
     H = cfg.padded_heads()
     KV = cfg.padded_kv_heads()
@@ -139,7 +149,7 @@ def gqa_apply(
     q = q.reshape(B, S, H, Dh)
     k = k.reshape(B, S, KV, Dh)
     v = v.reshape(B, S, KV, Dh)
-    q, k = _rope_qk(q, k, cfg, positions)
+    q, k = _rope_qk(q, k, cfg, positions, mrope_positions)
 
     window = cfg.sliding_window or 0
     if mode == "train":
@@ -171,6 +181,46 @@ def gqa_apply(
 
     out = out.reshape(B, S, H * Dh)
     return out @ p["wo"], new_cache
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+
+def cross_init(gen: torch.Generator, cfg: ModelConfig, *, device=None
+               ) -> nn.ParameterDict:
+    return gqa_init(gen, cfg, device=device)
+
+
+def cross_apply(
+    p: nn.ParameterDict,
+    x: torch.Tensor,               # (B, S_dec, D) decoder states
+    memory: torch.Tensor,          # (B, S_enc, D) encoder output
+    *,
+    cfg: ModelConfig,
+    backend: str = "cuda",
+) -> torch.Tensor:
+    """Full (non-causal) attention of the decoder's queries over the
+    encoder's memory, no rope (K4 on ``backend="cuda"``, at S_dec = 1 in a
+    decode step too). K and V are computed from ``memory`` on every call:
+    there is no cross-attention cache, as in the reference."""
+    B, S, D = x.shape
+    Sm = memory.shape[1]
+    H = cfg.padded_heads()
+    KV = cfg.padded_kv_heads()
+    Dh = cfg.resolved_head_dim()
+    q = x @ p["wq"]
+    k = memory @ p["wk"]
+    v = memory @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    out = ops.attention(q.reshape(B, S, H, Dh), k.reshape(B, Sm, KV, Dh),
+                        v.reshape(B, Sm, KV, Dh), causal=False,
+                        backend=backend)
+    return out.reshape(B, S, H * Dh) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------

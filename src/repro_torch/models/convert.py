@@ -6,11 +6,15 @@ no JAX) and returns a ``Model`` holding the same values. bfloat16 leaves
 arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses, so
 every leaf goes through float32 (exact for bfloat16) and is cast to the
 configuration's ``param_dtype`` on the device. The body slots' leading
-``(n_periods, ...)`` axis is unstacked into per-layer blocks; the
-``prefix`` layers (DeepSeek-V3's dense ones) and the ``mtp`` subtree map
-by name (``mtp/block/mixer/wq_a`` to ``mtp.block.mixer.wq_a``), and so do
-an MLA mixer's leaves (``wq_a``, ``q_norm``, ``wq_b`` or ``wq``,
-``wkv_a``, ``kv_norm``, ``wkv_b``, ``wo``). Every leaf lands exactly once:
+``(n_periods, ...)`` axis is unstacked into per-layer blocks, and so is
+the encoder's one slot ``enc_body/0`` (leading axis
+``num_encoder_layers``) into ``enc_blocks.{i}``; the ``prefix`` layers
+(DeepSeek-V3's dense ones) and the ``mtp`` subtree map by name
+(``mtp/block/mixer/wq_a`` to ``mtp.block.mixer.wq_a``), and so do
+``pos_embed``, ``enc_norm``, a decoder layer's ``cross_norm`` and
+``cross`` leaves and an MLA mixer's (``wq_a``, ``q_norm``, ``wq_b`` or
+``wq``, ``wkv_a``, ``kv_norm``, ``wkv_b``, ``wo``). Every leaf lands
+exactly once:
 a leaf with no place in the model, a model parameter no leaf filled, or a
 shape that differs raises ``ValueError``.
 """
@@ -40,7 +44,7 @@ def _leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
 def _targets(tree: Dict[str, Any], cfg: ModelConfig
              ) -> Iterator[Tuple[str, str, Any]]:
     """(model parameter name, tree path, array) for every leaf, with the
-    stacked body leaves split into one array per layer."""
+    stacked body and encoder leaves split into one array per layer."""
     prefix, kinds, n_periods = tfm.layer_layout(cfg)
     P = len(kinds)
     for path, leaf in _leaves(tree):
@@ -48,15 +52,18 @@ def _targets(tree: Dict[str, Any], cfg: ModelConfig
         if parts[0] == "prefix":
             i, rest = int(parts[1]), ".".join(parts[2:])
             yield f"blocks.{i}.{rest}", path, np.asarray(leaf)
-        elif parts[0] == "body":
+        elif parts[0] in ("body", "enc_body"):
             j, rest = int(parts[1]), ".".join(parts[2:])
             arr = np.asarray(leaf)
-            if arr.shape[0] != n_periods:
+            if parts[0] == "body":
+                n, name = n_periods, lambda t: f"blocks.{prefix + t * P + j}"
+            else:       # one slot of num_encoder_layers uniform layers
+                n, name = cfg.num_encoder_layers, lambda t: f"enc_blocks.{t}"
+            if arr.shape[0] != n:
                 raise ValueError(f"{path}: leading axis {arr.shape[0]}, "
-                                 f"expected {n_periods} periods")
-            for t in range(n_periods):
-                yield (f"blocks.{prefix + t * P + j}.{rest}",
-                       f"{path}[{t}]", arr[t])
+                                 f"expected {n} periods")
+            for t in range(n):
+                yield f"{name(t)}.{rest}", f"{path}[{t}]", arr[t]
         else:
             yield ".".join(parts), path, np.asarray(leaf)
 

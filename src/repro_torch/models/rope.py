@@ -1,13 +1,12 @@
-"""Rotary position embeddings (standard RoPE).
+"""Rotary position embeddings: standard RoPE and Qwen2-VL's M-RoPE.
 
-The counterpart of ``repro.models.rope`` for ``rope_freqs``,
-``apply_rope`` and ``positions_for``. Angles are float32, the rotation is
-done in float32 and cast back to the input's dtype. M-RoPE (Qwen2-VL)
-comes with the ``qwen2-vl-2b`` slice (``ROADMAP.md``).
+The counterpart of ``repro.models.rope``: ``rope_freqs``, ``apply_rope``,
+``apply_mrope`` and ``positions_for``. Angles are float32, the rotation is
+done in float32 and cast back to the input's dtype.
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -38,6 +37,39 @@ def apply_rope(
     ang = pos[..., None] * freqs                             # (B,S,D/2) or (S,D/2)
     if ang.dim() == 2:                                       # (S, D/2)
         ang = ang[None]
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    return _rotate(x, cos, sin)
+
+
+def apply_mrope(
+    x: torch.Tensor,               # (B, S, H, D)
+    positions: torch.Tensor,       # (3, B, S): temporal, height, width
+    theta: float = 10_000.0,
+    sections: Optional[Sequence[int]] = None,
+) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: the D/2 frequency channels are split into
+    (t, h, w) sections, each rotated by its own position stream. By
+    default the sections are ``t = D/2 // 4`` and ``h, w`` halves of the
+    rest (16/24/24 at head dim 128). With three equal streams M-RoPE is
+    RoPE."""
+    D = x.shape[-1]
+    half = D // 2
+    if sections is None:
+        t = half // 4
+        hw = (half - t) // 2
+        sections = (t, hw, half - t - hw)
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"{half}")
+    freqs = rope_freqs(D, theta, device=x.device)            # (half,)
+    pos = positions.to(device=x.device, dtype=torch.float32)
+    ang = pos[..., None] * freqs                             # (3,B,S,half)
+    # section i of the channels from stream i
+    parts, off = [], 0
+    for i, sec in enumerate(sections):
+        parts.append(ang[i, :, :, off:off + sec])
+        off += sec
+    ang = torch.cat(parts, -1)                               # (B,S,half)
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     return _rotate(x, cos, sin)
 

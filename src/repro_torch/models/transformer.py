@@ -1,20 +1,27 @@
-"""Model assembly: the decoder-only transformer, serving subset.
+"""Model assembly: the transformer, serving subset.
 
-The counterpart of ``repro.models.transformer`` for stacks whose layers
-are GQA attention (RoPE or none), MLA or the Mamba mixer, each followed by
-a dense MLP or a dropless MoE, with RMSNorm (``qwen2-7b``,
-``stablelm-12b``, ``starcoder2-15b``, ``mixtral-8x7b``,
-``jamba-v0.1-52b``, ``minicpm3-4b``, ``deepseek-v3-671b``), or RWKV-6 time
-mix + channel mix with LayerNorm and ``ln0`` (``rwkv6-3b``). The reference
-stacks each period slot's parameters ``(n_periods, ...)`` and runs the
-depth as one ``lax.scan``; here each layer is a block in an
-``nn.ModuleList`` walked by a Python loop, and the logical-sharding
-annotations drop out (one card, no mesh). A configuration with
-``mtp_depth > 0`` (DeepSeek-V3) carries the multi-token-prediction
-parameters, ``Params.mtp``, as the reference does; serving does not use
-them, and their loss comes with the training slice. Layers the port lacks
--- cross attention, M-RoPE, learned positions, the vision frontend -- are
-refused when the model is built (:func:`check_supported`).
+The counterpart of ``repro.models.transformer`` for every configuration
+of the registry: stacks whose layers are GQA attention (RoPE, M-RoPE or
+none), MLA or the Mamba mixer, each followed by a dense MLP or a dropless
+MoE, with RMSNorm (``qwen2-7b``, ``stablelm-12b``, ``starcoder2-15b``,
+``mixtral-8x7b``, ``jamba-v0.1-52b``, ``minicpm3-4b``,
+``deepseek-v3-671b``, ``qwen2-vl-2b``); RWKV-6 time mix + channel mix with
+LayerNorm and ``ln0`` (``rwkv6-3b``); and the encoder-decoder
+(``seamless-m4t-large-v2``): learned positions (``pos_embed``), a
+non-causal GQA encoder (``enc_blocks``, ``enc_norm``) and decoder layers
+with cross attention over its output, all with LayerNorm. The frontends
+are stubs, as in the reference: the vision model takes precomputed patch
+embeddings scattered into the token stream and (3, B, S) M-RoPE
+positions, the audio model precomputed frame embeddings
+(``enc_embeds``). The reference stacks each period slot's parameters
+``(n_periods, ...)`` and runs the depth as one ``lax.scan``; here each
+layer is a block in an ``nn.ModuleList`` walked by a Python loop, and the
+logical-sharding annotations drop out (one card, no mesh). A
+configuration with ``mtp_depth > 0`` (DeepSeek-V3) carries the
+multi-token-prediction parameters, ``Params.mtp``, as the reference does;
+serving does not use them, and their loss comes with the training slice.
+A layer kind outside :data:`SUPPORTED_KINDS` is refused when the model is
+built (:func:`check_supported`).
 
 Modes:
   * ``train``   -- full causal pass, logits, no cache (losses come with
@@ -22,8 +29,8 @@ Modes:
   * ``prefill`` -- causal pass that also fills the decode cache.
   * ``decode``  -- one new token against the cache (S == 1).
 
-The cache is a list with one dict per layer, written in place:
-``{"attn": {"k", "v"}}`` for GQA, ``{"attn": {"c", "kr"}}`` for MLA,
+The cache is a list with one dict per decoder layer, written in place
+(cross attention keeps none): ``{"attn": {"k", "v"}}`` for GQA, ``{"attn": {"c", "kr"}}`` for MLA,
 ``{"attn": {"conv", "h"}}`` for Mamba, ``{"attn": {"last_x", "state"},
 "mlp": {"last_x"}}`` for RWKV-6.
 """
@@ -42,7 +49,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpm
 from repro_torch.models import ssm as ssmm
 from repro_torch.models.params import (dense_init, embed_init, ones, param,
-                                       zeros)
+                                       trunc_normal, zeros)
 from repro_torch.models.rope import positions_for
 
 Cache = List[Dict[str, Any]]
@@ -111,6 +118,7 @@ def layer_layout(cfg: ModelConfig) -> Tuple[int, List[LayerKind], int]:
 
 
 SUPPORTED_KINDS = (LayerKind("gqa", "dense", False),
+                   LayerKind("gqa", "dense", True),
                    LayerKind("gqa", "moe", False),
                    LayerKind("mla", "dense", False),
                    LayerKind("mla", "moe", False),
@@ -119,28 +127,27 @@ SUPPORTED_KINDS = (LayerKind("gqa", "dense", False),
                    LayerKind("rwkv", "cmix", False))
 
 
+ENC_KIND = LayerKind("gqa", "dense", False)     # every encoder layer
+
+
+def _kind(cfg: ModelConfig, i: int) -> LayerKind:
+    """The kind of decoder layer ``i``: with cross attention in an
+    encoder-decoder."""
+    return kind_for_layer(cfg, i, cross=cfg.is_encoder_decoder)
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration that needs layers
-    this slice of the port does not have."""
-    missing = []
-    if cfg.is_encoder_decoder:
-        missing.append("encoder-decoder stacks with cross attention")
-    if cfg.frontend != "none":
-        missing.append(f"the {cfg.frontend} frontend")
-    if cfg.rope == "mrope":
-        missing.append("M-RoPE")
-    elif cfg.rope == "none" and cfg.ssm is None:
-        missing.append("learned absolute positions (pos_embed)")
-    kinds = {kind_for_layer(cfg, i) for i in range(cfg.num_layers)}
-    for k in sorted(kinds - set(SUPPORTED_KINDS), key=str):
-        missing.append(f"{k.mixer} mixer + {k.mlp} mlp layers")
+    """Raise ``NotImplementedError`` for a configuration with a layer kind
+    outside :data:`SUPPORTED_KINDS` (a mixer and MLP pairing, with or
+    without cross attention, that no configuration of the registry has)."""
+    kinds = {_kind(cfg, i) for i in range(cfg.num_layers)}
+    missing = [f"{k.mixer} mixer + {k.mlp} mlp"
+               f"{' + cross attention' if k.cross else ''} layers"
+               for k in sorted(kinds - set(SUPPORTED_KINDS), key=str)]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet; the port "
-            f"serves decoders of GQA, MLA or Mamba layers with dense or "
-            f"MoE MLPs, and RWKV-6; it refuses encoder-decoders, the "
-            f"vision and audio frontends, M-RoPE and learned absolute "
-            f"positions (ROADMAP.md, Queue 1, lists what comes next)")
+            f"{cfg.name}: {', '.join(missing)} not ported; the port builds "
+            f"the layer kinds {SUPPORTED_KINDS}")
 
 
 # ---------------------------------------------------------------------------
@@ -191,6 +198,9 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: LayerKind, *,
         p["mixer"] = attn.mla_init(gen, cfg, device=device)
     else:
         p["mixer"] = attn.gqa_init(gen, cfg, device=device)
+    if kind.cross:
+        p["cross_norm"] = _norm_init(cfg, b, device=device)
+        p["cross"] = attn.cross_init(gen, cfg, device=device)
     if kind.mlp == "cmix":
         p["mlp"] = ssmm.rwkv_cmix_init(gen, cfg, device=device)
     elif kind.mlp == "moe":
@@ -204,7 +214,8 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: LayerKind, *,
 
 def block_cache(cfg: ModelConfig, kind: LayerKind, batch: int, max_len: int,
                 *, device=None) -> Dict[str, Any]:
-    """Decode cache for one block (zeros; filled by prefill)."""
+    """Decode cache for one block (zeros; filled by prefill). Cross
+    attention adds nothing to it."""
     if kind not in SUPPORTED_KINDS:
         raise NotImplementedError(f"{kind} caches are not ported yet")
     if kind.mixer == "rwkv":
@@ -245,12 +256,15 @@ def block_apply(
     mode: str,
     cache: Optional[Dict[str, Any]],
     kv_len: Optional[torch.Tensor],
+    memory: Optional[torch.Tensor] = None,           # (B, S_enc, D) enc-dec
+    mrope_positions: Optional[torch.Tensor] = None,  # (3, B, S)
     causal: bool = True,
     backend: str = "cuda",
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Returns (x_out, new_cache). ``kv_len`` and ``pos0`` are unused by
-    RWKV and Mamba layers, as in the reference. The MoE's aux loss is
-    dropped: serving has no use for it."""
+    RWKV and Mamba layers, as in the reference. A layer with cross
+    attention attends over ``memory`` after its mixer when it is given.
+    The MoE's aux loss is dropped: serving has no use for it."""
     eps = cfg.norm_eps
     new_cache: Dict[str, Any] = {}
     h = _norm(p["norm1"], x, eps, backend=backend)
@@ -271,10 +285,14 @@ def block_apply(
         out, nc = attn.gqa_apply(
             p["mixer"], h, cfg=cfg, positions=positions, mode=mode,
             cache=cache["attn"] if cache else None, kv_len=kv_len, pos0=pos0,
-            causal=causal, backend=backend)
+            mrope_positions=mrope_positions, causal=causal, backend=backend)
     if nc is not None:
         new_cache["attn"] = nc
     x = x + out
+    if kind.cross and memory is not None:
+        hc = _norm(p["cross_norm"], x, eps, backend=backend)
+        x = x + attn.cross_apply(p["cross"], hc, memory, cfg=cfg,
+                                 backend=backend)
     h2 = _norm(p["norm2"], x, eps, backend=backend)
     if kind.mlp == "cmix":
         out, nc = ssmm.rwkv_cmix_apply(p["mlp"], h2, cfg=cfg, mode=mode,
@@ -312,19 +330,29 @@ class MTP(nn.Module):
 
 
 class Params(nn.Module):
-    """The decoder's parameters: ``embed``, ``ln0`` (RWKV-6's norm of the
-    embeddings; absent elsewhere), ``blocks`` (one per layer),
+    """The model's parameters: ``embed``, ``pos_embed`` (learned absolute
+    positions, (max_seq_len, D): the encoder-decoder's), ``ln0`` (RWKV-6's
+    norm of the embeddings), ``enc_blocks`` and ``enc_norm`` (the
+    encoder-decoder's encoder), ``blocks`` (one per decoder layer),
     ``final_norm``, ``lm_head`` (absent with tied embeddings) and ``mtp``
-    (with ``mtp_depth > 0`` only)."""
+    (with ``mtp_depth > 0`` only). Each optional part is ``None`` where
+    the configuration has none."""
 
     def __init__(self, embed: torch.Tensor, blocks: List[nn.ModuleDict],
                  final_norm: nn.ParameterDict,
                  lm_head: Optional[torch.Tensor],
                  ln0: Optional[nn.ParameterDict] = None,
-                 mtp: Optional[MTP] = None):
+                 mtp: Optional[MTP] = None,
+                 pos_embed: Optional[torch.Tensor] = None,
+                 enc_blocks: Optional[List[nn.ModuleDict]] = None,
+                 enc_norm: Optional[nn.ParameterDict] = None):
         super().__init__()
         self.embed = param(embed)
+        self.pos_embed = param(pos_embed) if pos_embed is not None else None
         self.ln0 = ln0
+        self.enc_blocks = nn.ModuleList(enc_blocks) \
+            if enc_blocks is not None else None
+        self.enc_norm = enc_norm
         self.blocks = nn.ModuleList(blocks)
         self.final_norm = final_norm
         self.lm_head = param(lm_head) if lm_head is not None else None
@@ -338,10 +366,21 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *, device=None
     Vp = cfg.padded_vocab()
     D = cfg.d_model
     embed = embed_init(gen, Vp, D, dtype=dt, device=device)
+    pos_embed = None
+    if cfg.is_encoder_decoder or (cfg.rope == "none" and cfg.ssm is None):
+        # learned absolute positions for rope-free attention stacks
+        pos_embed = trunc_normal(gen, (cfg.max_seq_len, D), std=0.02,
+                                 dtype=dt, device=device)
     ln0 = None
     if cfg.ssm is not None and cfg.ssm.kind == "rwkv6":
         ln0 = _norm_init(cfg, True, device=device)
-    blocks = [block_init(gen, cfg, kind_for_layer(cfg, i), device=device)
+    enc_blocks = enc_norm = None
+    if cfg.is_encoder_decoder:
+        # the encoder: uniform non-causal GQA blocks
+        enc_blocks = [block_init(gen, cfg, ENC_KIND, device=device)
+                      for _ in range(cfg.num_encoder_layers)]
+        enc_norm = _norm_init(cfg, _uses_ln_bias(cfg), device=device)
+    blocks = [block_init(gen, cfg, _kind(cfg, i), device=device)
               for i in range(cfg.num_layers)]
     final_norm = _norm_init(cfg, _uses_ln_bias(cfg), device=device)
     lm_head = None
@@ -356,13 +395,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *, device=None
                   block_init(gen, cfg, kind_for_layer(cfg, cfg.num_layers - 1),
                              device=device),
                   _norm_init(cfg, False, device=device))
-    return Params(embed, blocks, final_norm, lm_head, ln0, mtp)
+    return Params(embed, blocks, final_norm, lm_head, ln0, mtp, pos_embed,
+                  enc_blocks, enc_norm)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None
                ) -> Cache:
-    return [block_cache(cfg, kind_for_layer(cfg, i), batch, max_len,
-                        device=device)
+    return [block_cache(cfg, _kind(cfg, i), batch, max_len, device=device)
             for i in range(cfg.num_layers)]
 
 
@@ -371,25 +410,56 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None
 # ---------------------------------------------------------------------------
 
 
-def _embed(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-           backend: str) -> torch.Tensor:
-    x = p.embed[tokens].to(getattr(torch, cfg.dtype))
+def _embed(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
+           positions: torch.Tensor, *, backend: str) -> torch.Tensor:
+    dt = getattr(torch, cfg.dtype)
+    x = p.embed[tokens].to(dt)
+    if p.pos_embed is not None:
+        x = x + p.pos_embed[positions.to(device=x.device,
+                                         dtype=torch.long)].to(dt)
     if p.ln0 is not None:
         x = _norm(p.ln0, x, cfg.norm_eps, backend=backend)
     return x
 
 
+def scatter_patches(x: torch.Tensor, patch_embeds: torch.Tensor,
+                    patch_positions: torch.Tensor) -> torch.Tensor:
+    """The vision stub: ``x.at[bidx, patch_positions].set(patch_embeds)``
+    of the reference, which writes row ``b``'s patch ``j`` at position
+    ``patch_positions[b, j]`` of the token stream. A negative position
+    counts from the end (-1 is S - 1); one outside [-S, S) is dropped, as
+    JAX drops it, with no device-side assert: such patches are written to
+    a spare row past the end, which is cut off. Positions within a row
+    are taken to be distinct: for a repeated one neither package defines
+    which patch is kept. Returns a new (B, S, D) tensor."""
+    B, S, D = x.shape
+    pp = patch_positions.to(device=x.device, dtype=torch.long)
+    pp = torch.where(pp < 0, pp + S, pp)
+    pp = torch.where((pp >= 0) & (pp < S), pp, S)
+    xe = torch.cat([x, x.new_zeros((B, 1, D))], 1)
+    xe[torch.arange(B, device=x.device)[:, None], pp] = \
+        patch_embeds.to(device=x.device, dtype=x.dtype)
+    return xe[:, :S].contiguous()
+
+
 def _run_stack(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
                positions: torch.Tensor, pos0, mode: str,
                cache: Optional[Cache], kv_len: Optional[torch.Tensor],
-               backend: str) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """The layers in order. Returns (x, new_cache)."""
+               backend: str, memory: Optional[torch.Tensor] = None,
+               mrope_positions: Optional[torch.Tensor] = None,
+               enc: bool = False) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """The decoder's layers in order, or with ``enc`` the encoder's
+    (non-causal, no cache). Returns (x, new_cache)."""
+    blocks = p.enc_blocks if enc else p.blocks
     new_cache = []
-    for i, blk in enumerate(p.blocks):
-        x, nc = block_apply(blk, x, cfg=cfg, kind=kind_for_layer(cfg, i),
+    for i, blk in enumerate(blocks):
+        x, nc = block_apply(blk, x, cfg=cfg,
+                            kind=ENC_KIND if enc else _kind(cfg, i),
                             positions=positions, pos0=pos0,
                             mode=mode, cache=cache[i] if cache else None,
-                            kv_len=kv_len, backend=backend)
+                            kv_len=kv_len, memory=memory,
+                            mrope_positions=mrope_positions, causal=not enc,
+                            backend=backend)
         new_cache.append(nc)
     return x, (new_cache if mode in ("prefill", "decode") else None)
 
@@ -405,6 +475,33 @@ def _head(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x @ head
 
 
+def _embed_frames(p: Params, cfg: ModelConfig, enc_embeds: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder's input: frame embeddings (B, S_enc, D) in
+    ``cfg.dtype`` + ``pos_embed``. Returns (x, positions)."""
+    if p.enc_blocks is None:
+        raise ValueError(f"{cfg.name} has no encoder")
+    B, S, _ = enc_embeds.shape
+    dt = getattr(torch, cfg.dtype)
+    positions = positions_for(B, S, device=p.embed.device)
+    x = enc_embeds.to(device=p.embed.device, dtype=dt)
+    if p.pos_embed is not None:
+        x = x + p.pos_embed[positions.long()].to(dt)
+    return x, positions
+
+
+def encode(p: Params, cfg: ModelConfig, enc_embeds: torch.Tensor, *,
+           backend: str = "cuda") -> torch.Tensor:
+    """The encoder from precomputed frame embeddings (B, S_enc, D) (the
+    audio stub): + ``pos_embed``, the non-causal stack, ``enc_norm``.
+    Returns the memory (B, S_enc, D) in ``cfg.dtype``."""
+    x, positions = _embed_frames(p, cfg, enc_embeds)
+    x, _ = _run_stack(p, x, cfg=cfg, positions=positions, pos0=0,
+                      mode="train", cache=None, kv_len=None,
+                      backend=backend, enc=True)
+    return _norm(p.enc_norm, x, cfg.norm_eps, backend=backend)
+
+
 def forward(
     p: Params,
     batch: Dict[str, torch.Tensor],
@@ -415,9 +512,13 @@ def forward(
     pos0: Optional[Union[int, torch.Tensor]] = None,
     backend: str = "cuda",
 ) -> Output:
-    """batch keys: tokens (B,S); optional positions (B,S), kv_len (B,).
-    ``pos0`` is the position of ``tokens[:, 0]`` for the cache write
-    (read from ``positions`` when not given, 0 without them)."""
+    """batch keys: tokens (B,S); optional positions (B,S), kv_len (B,);
+    the encoder-decoder's memory (B,S_enc,D), or enc_embeds (B,S_enc,D)
+    to encode first; the vision model's patch_embeds (B,n_patch,D) and
+    patch_positions (B,n_patch) (:func:`scatter_patches`) and
+    mrope_positions (3,B,S). ``pos0`` is the position of ``tokens[:, 0]``
+    for the cache write (read from ``positions`` when not given, 0
+    without them)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     positions = batch.get("positions")
@@ -426,10 +527,20 @@ def forward(
         pos0 = 0 if pos0 is None else pos0
     elif pos0 is None:
         pos0 = int(positions[0, 0])
-    x = _embed(p, cfg, tokens, backend=backend)
+    memory = None
+    if cfg.is_encoder_decoder:
+        memory = batch.get("memory")
+        if memory is None:
+            memory = encode(p, cfg, batch["enc_embeds"], backend=backend)
+    x = _embed(p, cfg, tokens, positions, backend=backend)
+    if cfg.frontend == "vision" and "patch_embeds" in batch:
+        x = scatter_patches(x, batch["patch_embeds"],
+                            batch["patch_positions"])
     x, new_cache = _run_stack(p, x, cfg=cfg, positions=positions, pos0=pos0,
                               mode=mode, cache=cache,
-                              kv_len=batch.get("kv_len"), backend=backend)
+                              kv_len=batch.get("kv_len"), backend=backend,
+                              memory=memory,
+                              mrope_positions=batch.get("mrope_positions"))
     x = _norm(p.final_norm, x, cfg.norm_eps, backend=backend)
     return Output(logits=_head(p, cfg, x), cache=new_cache)
 
@@ -460,15 +571,20 @@ def decode_step(
     *,
     cfg: ModelConfig,
     kv_len: Optional[torch.Tensor] = None,
+    memory: Optional[torch.Tensor] = None,
     backend: str = "cuda",
 ) -> Tuple[torch.Tensor, Cache]:
     """One decode step: logits for the next token + the updated cache
-    (the same list, written in place)."""
+    (the same list, written in place). An encoder-decoder takes the
+    encoder's ``memory``. The positions are ``pos`` on every stream: an
+    M-RoPE model decodes with plain RoPE, as in the reference."""
     B = token.shape[0]
     batch = {"tokens": token[:, None],
              "positions": positions_for(B, 1, pos, device=token.device)}
     if kv_len is not None:
         batch["kv_len"] = kv_len
+    if memory is not None:
+        batch["memory"] = memory
     out = forward(p, batch, cfg=cfg, mode="decode", cache=cache, pos0=pos,
                   backend=backend)
     return out.logits[:, 0], out.cache

@@ -520,6 +520,61 @@ def test_torch_cuda_smoke_minicpm3_prefill_and_decode_match_torch_backend(
     assert torch.equal(a, b)
 
 
+def test_torch_cuda_smoke_qwen2vl_vision_prefill_matches_torch_backend(card):
+    """M-RoPE and the vision stub on the card with the kernels: Qwen2-VL at
+    full width cut to 2 layers, float32, a vision prefill's logits within
+    1e-4 relative of the plain versions' and the same greedy tokens after
+    it; K4 once per layer in the prefill, none in a decode step, K5 twice
+    per layer and the final norm in every forward."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.kernels import cuda_kernels as MK
+    from repro_torch.models.api import build_model
+    cfg = get_model_config("qwen2-vl-2b").replace(
+        num_layers=2, dtype="float32", param_dtype="float32")
+    model = build_model(cfg)
+    model.init(1)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                size=(2, 300))
+    batch = {"tokens": torch.as_tensor(prompts, device=card),
+             **SMOKE.vision_inputs(cfg, prompts, 3)}
+    MK.reset_launch_counts()
+    lc, a = SMOKE.greedy_after_prefill(model, batch, 6, "cuda")
+    assert MK.launch_counts() == {"flash_attention": 2, "rmsnorm": 5 * 7,
+                                  "wkv6": 0, "mamba_scan": 0}
+    lt, b = SMOKE.greedy_after_prefill(model, batch, 6, "torch")
+    assert float((lc - lt).abs().max() / lt.abs().max()) <= 1e-4
+    assert torch.equal(a, b)
+
+
+def test_torch_cuda_smoke_seamless_generate_matches_torch_backend(card):
+    """The encoder-decoder on the card with the kernels: SeamlessM4T at
+    full width cut to 2 + 2 layers, float32, the same greedy tokens as the
+    plain versions through ``generate``; K4 once per encoder layer in the
+    encode, twice per decoder layer in the prefill and once per decoder
+    layer in a decode step (cross attention at one query row), no K5."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.kernels import cuda_kernels as MK
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.api import build_model
+    cfg = get_model_config("seamless-m4t-large-v2").replace(
+        num_layers=2, num_encoder_layers=2, dtype="float32",
+        param_dtype="float32")
+    model = build_model(cfg)
+    model.init(1)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, size=(2, 40))
+    enc = (rng.standard_normal((2, 70, cfg.d_model)) * 0.02
+           ).astype(np.float32)
+    MK.reset_launch_counts()
+    a, _ = generate(arch=cfg.name, prompt_tokens=prompts, model=model,
+                    enc_embeds=enc, max_new_tokens=6)
+    assert MK.launch_counts() == {"flash_attention": 2 + 4 + 2 * 6,
+                                  "rmsnorm": 0, "wkv6": 0, "mamba_scan": 0}
+    b, _ = generate(arch=cfg.name, prompt_tokens=prompts, model=model,
+                    enc_embeds=enc, max_new_tokens=6, backend="torch")
+    assert torch.equal(a, b)
+
+
 # K6 (the WKV6 recurrence) within 2e-4 of its plain version in float32
 # and 2e-2 in bfloat16, y and the final state (tests/test_kernels.py's),
 # over chip_smoke.py's cases and inputs
@@ -742,7 +797,8 @@ def test_torch_cuda_smoke_jamba_generate_matches_torch_backend(card):
     MK.reset_launch_counts()
     a, _ = generate(arch="jamba-v0.1-52b", prompt_tokens=prompts,
                     model=model, max_new_tokens=6)
-    per_prefill, per_step = SMOKE.expected_launches(cfg, "jamba-v0.1-52b")
+    per = SMOKE.expected_launches(cfg, "jamba-v0.1-52b")
+    per_prefill, per_step = per["prefill"], per["decode_step"]
     assert per_prefill["flash_attention"] == 1
     assert per_prefill["mamba_scan"] == 7
     assert MK.launch_counts() == {k: per_prefill[k] + 6 * per_step[k]

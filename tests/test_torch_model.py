@@ -198,9 +198,10 @@ def test_torch_ring_write_matches_jax(S, C, pos):
 
 
 def jax_model(arch, dtype, seed=0):
-    """The JAX smoke model in ``dtype`` with its QKV biases and norm scales
-    set to random non-zero values (the init makes them 0 and 1, which
-    would hide a dropped bias or scale), as a numpy tree too."""
+    """The JAX smoke model in ``dtype`` with its QKV, MLP and LayerNorm
+    biases and norm scales set to random non-zero values (the init makes
+    them 0 and 1, which would hide a dropped bias or scale), as a numpy
+    tree too."""
     cfg = jconfigs.get_model_config(arch, smoke=True)
     if dtype == "float32":
         cfg = cfg.replace(dtype="float32", param_dtype="float32")
@@ -210,7 +211,7 @@ def jax_model(arch, dtype, seed=0):
 
     def perturb(path, x):
         name = str(path[-1].key) if hasattr(path[-1], "key") else ""
-        if name in ("bq", "bk", "bv", "b_up", "b_down"):
+        if name in ("bq", "bk", "bv", "b_up", "b_down", "bias"):
             v = 0.1 * rng.standard_normal(x.shape)
         elif name == "scale":
             v = 1.0 + 0.2 * rng.standard_normal(x.shape)
@@ -293,21 +294,15 @@ def test_torch_convert_refuses_a_leftover_or_missing_leaf():
         params_from_jax(short, cfg, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "seamless-m4t-large-v2"])
-def test_torch_build_model_refuses_unported_families(arch):
-    cfg = tconfigs.get_model_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(cfg, device="cpu")
-
-
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "jamba-v0.1-52b",
-                                  "minicpm3-4b", "mixtral-8x7b",
-                                  "qwen2-7b", "rwkv6-3b", "stablelm-12b",
-                                  "starcoder2-15b"])
+@pytest.mark.parametrize("arch", tconfigs.ARCH_IDS)
 def test_torch_build_model_takes_the_ported_families(arch):
+    """All ten configurations of the registry, at smoke size."""
     cfg = tconfigs.get_model_config(arch, smoke=True)
     model = build_model(cfg, device="cpu")
     p = model.init(0)
     assert len(p.blocks) == cfg.num_layers
     assert p.embed.shape == (cfg.padded_vocab(), cfg.d_model)
     assert all(not t.requires_grad for t in p.parameters())
+    n_enc = len(p.enc_blocks) if p.enc_blocks is not None else 0
+    assert n_enc == (cfg.num_encoder_layers if cfg.is_encoder_decoder
+                     else 0)

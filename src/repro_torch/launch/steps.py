@@ -1,15 +1,110 @@
-"""Step factories for serving: prefill and decode.
+"""Step factories: train (plain and gradient accumulation), prefill and
+decode.
 
-The counterpart of the serve half of ``repro.launch.steps``
-(``make_prefill_step`` / ``make_decode_step``, whose decode step takes
-the encoder-decoder's ``memory``). There is no ``jit`` and no sharding to
+The counterpart of ``repro.launch.steps`` (``make_train_step``,
+``make_prefill_step``, ``make_decode_step``, whose decode step takes the
+encoder-decoder's ``memory``). There is no ``jit`` and no sharding to
 attach on one card: a step is the model call with the kernel backend
-bound. The train step, gradient accumulation and the dry-run lowering
-come with their slices (``ROADMAP.md``).
+bound. The train step holds no parameters of its own: the model does,
+and the step updates them in place (the reference's jitted step donates
+them and returns new ones), so it maps ``(opt_state, batch)`` to
+``(opt_state, metrics)``. The dry-run lowering comes with its slice
+(``ROADMAP.md``).
 """
 from __future__ import annotations
 
+from typing import Dict
+
+import torch
+
+from repro_torch.configs.base import OptimizerConfig
 from repro_torch.models.api import Model
+from repro_torch.optim import adamw_update, decay_mask
+
+
+def _split(batch: Dict[str, torch.Tensor], k: int):
+    """The batch as ``k`` microbatches along its batch axis: dimension 1
+    of ``mrope_positions`` (3, B, S), dimension 0 of every other input; a
+    scalar goes to every microbatch."""
+    out = [dict() for _ in range(k)]
+    for name, v in batch.items():
+        if v.dim() == 0:
+            parts = [v] * k
+        elif name == "mrope_positions":
+            parts = v.chunk(k, 1)
+        else:
+            parts = v.chunk(k, 0)
+        if len(parts) != k or len({p.shape for p in parts}) != 1:
+            raise ValueError(f"{name} {tuple(v.shape)} does not split into "
+                             f"{k} equal microbatches")
+        for mb, part in zip(out, parts):
+            mb[name] = part
+    return out
+
+
+def make_train_step(model: Model, opt_cfg: OptimizerConfig,
+                    microbatches: int = 1, backend: str = "cuda"):
+    """Plain step (microbatches=1) or gradient-accumulation step.
+
+    The plain step takes the loss's gradient with respect to every
+    parameter (``loss.backward()``) and applies ``adamw_update``. With
+    accumulation, each microbatch's gradient is cast to float32 and added
+    into a float32 accumulator (the reference's ZeRO reduce-scatter of it
+    is the identity with no mesh), the mean is cast to each parameter's
+    dtype, and the loss and aux loss are the microbatches' means. The
+    parameters must require grad (``model.requires_grad_(True)``); a
+    parameter the loss does not reach has a zero gradient. Gradients are
+    dropped after the update."""
+    params = dict(model.params.named_parameters())
+    if not all(p.requires_grad for p in params.values()):
+        raise ValueError("the model's parameters do not require grad: call "
+                         "model.requires_grad_(True) before training")
+    decay = decay_mask(model.cfg, params)
+
+    def grads_of(batch):
+        for p in params.values():
+            p.grad = None
+        loss, metrics = model.loss(batch, backend=backend)
+        loss.backward()
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in params.items()}
+        for p in params.values():
+            p.grad = None
+        return grads, {k: v.detach() for k, v in metrics.items()}
+
+    def train_step(opt_state, batch):
+        grads, metrics = grads_of(batch)
+        _, opt_state, opt_metrics = adamw_update(opt_cfg, params, grads,
+                                                 opt_state, decay)
+        return opt_state, dict(metrics, **opt_metrics)
+
+    if microbatches <= 1:
+        return train_step
+
+    def accum_step(opt_state, batch):
+        k = microbatches
+        acc = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for n, p in params.items()}
+        dev = next(iter(params.values())).device
+        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        aux_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        for mb in _split(batch, k):
+            g, metrics = grads_of(mb)
+            for n in acc:
+                acc[n] += g[n].float()
+            del g
+            loss_sum = loss_sum + metrics["loss"]
+            aux_sum = aux_sum + metrics.get("aux_loss", 0.0)
+        kt = torch.full((), float(k), dtype=torch.float32, device=dev)
+        grads = {n: (acc.pop(n) / kt).to(p.dtype)
+                 for n, p in params.items()}
+        _, opt_state, opt_metrics = adamw_update(opt_cfg, params, grads,
+                                                 opt_state, decay)
+        metrics = {"loss": loss_sum / kt, "lm_loss": loss_sum / kt,
+                   "aux_loss": aux_sum / kt, **opt_metrics}
+        return opt_state, metrics
+
+    return accum_step
 
 
 def make_prefill_step(model: Model, max_len: int, backend: str = "cuda"):

@@ -1,8 +1,9 @@
 """Public model API: ``Model``, an ``nn.Module`` over the transformer
 assembly, on an explicit device.
 
-The counterpart of ``repro.models.api.Model`` for serving: ``init`` /
-``init_cache`` / ``forward`` / ``encode`` / ``prefill`` / ``decode_step``.
+The counterpart of ``repro.models.api.Model``: ``init`` /
+``init_cache`` / ``forward`` / ``loss`` / ``encode`` / ``prefill`` /
+``decode_step``.
 ``encode`` is the encoder-decoder's encoder (the reference's
 ``transformer.encode``, which its ``generate`` calls directly). The
 reference's ``Model`` is a stateless facade whose methods take the
@@ -10,8 +11,11 @@ parameter pytree; here the module holds its parameters (``params``, set
 by :meth:`Model.init` or :func:`repro_torch.models.convert.params_from_jax`)
 and every execution method takes the kernel backend (``"cuda"``, the
 default, or ``"torch"``; :mod:`repro_torch.kernels.ops`). Parameters are in
-``cfg.param_dtype``, activations and the cache in ``cfg.dtype``. The
-abstract input specs of the dry-run come with its port.
+``cfg.param_dtype``, activations and the cache in ``cfg.dtype``. They
+are built as serving parameters (``requires_grad=False``);
+``model.requires_grad_(True)`` (``nn.Module``'s) makes them trainable, as
+``launch.train.train`` does. The abstract input specs of the dry-run
+come with its port.
 """
 from __future__ import annotations
 
@@ -58,6 +62,14 @@ class Model(nn.Module):
                 ) -> tfm.Output:
         return tfm.forward(self._p(), batch, cfg=self.cfg, mode=mode,
                            cache=cache, backend=backend)
+
+    def loss(self, batch: Dict[str, torch.Tensor], *, backend: str = "cuda"
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, metrics) of the batch (tokens (B, S+1)):
+        :func:`repro_torch.models.transformer.loss_fn`. Raises
+        ``NotImplementedError`` for a configuration with RWKV-6 or Mamba
+        layers."""
+        return tfm.loss_fn(self._p(), batch, cfg=self.cfg, backend=backend)
 
     def prefill(self, batch: Dict[str, torch.Tensor], max_len: int, *,
                 backend: str = "cuda") -> Tuple[torch.Tensor, tfm.Cache]:

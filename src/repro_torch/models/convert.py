@@ -16,7 +16,9 @@ the encoder's one slot ``enc_body/0`` (leading axis
 ``wq``, ``wkv_a``, ``kv_norm``, ``wkv_b``, ``wo``). Every leaf lands
 exactly once:
 a leaf with no place in the model, a model parameter no leaf filled, or a
-shape that differs raises ``ValueError``.
+shape that differs raises ``ValueError``. :func:`jax_path` is the map the
+other way, from a parameter's name to its leaf's path in the reference's
+tree (the optimizer's decay mask reads leaf names and ranks from it).
 """
 from __future__ import annotations
 
@@ -66,6 +68,23 @@ def _targets(tree: Dict[str, Any], cfg: ModelConfig
                 yield f"{name(t)}.{rest}", f"{path}[{t}]", arr[t]
         else:
             yield ".".join(parts), path, np.asarray(leaf)
+
+
+def jax_path(name: str, cfg: ModelConfig) -> Tuple[str, bool]:
+    """The path (``/body/0/mixer/wq``) of the reference's leaf that holds
+    the port's parameter ``name`` (``blocks.0.mixer.wq``), and whether the
+    reference stacks it (a leading period axis: the body slots and the
+    encoder's one slot), so that its rank there is one more than here."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        i, rest = int(parts[1]), "/".join(parts[2:])
+        prefix, kinds, _ = tfm.layer_layout(cfg)
+        if i < prefix:
+            return f"/prefix/{i}/{rest}", False
+        return f"/body/{(i - prefix) % len(kinds)}/{rest}", True
+    if parts[0] == "enc_blocks":
+        return f"/enc_body/0/{'/'.join(parts[2:])}", True
+    return "/" + "/".join(parts), False
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,

@@ -47,6 +47,7 @@ def ones(shape, dtype=torch.bfloat16, device=None) -> torch.Tensor:
 
 
 def param(x: torch.Tensor) -> nn.Parameter:
-    """A serving parameter: held by a module, never differentiated."""
+    """A parameter as serving holds it, with ``requires_grad=False``;
+    ``nn.Module.requires_grad_(True)`` on the model makes it trainable."""
     return nn.Parameter(x, requires_grad=False)
 

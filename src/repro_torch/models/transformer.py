@@ -1,4 +1,4 @@
-"""Model assembly: the transformer, serving subset.
+"""Model assembly: the transformer, its forward and its losses.
 
 The counterpart of ``repro.models.transformer`` for every configuration
 of the registry: stacks whose layers are GQA attention (RoPE, M-RoPE or
@@ -19,13 +19,16 @@ layer is a block in an ``nn.ModuleList`` walked by a Python loop, and the
 logical-sharding annotations drop out (one card, no mesh). A
 configuration with ``mtp_depth > 0`` (DeepSeek-V3) carries the
 multi-token-prediction parameters, ``Params.mtp``, as the reference does;
-serving does not use them, and their loss comes with the training slice.
+serving does not use them, its loss does (:func:`_mtp_loss`).
 A layer kind outside :data:`SUPPORTED_KINDS` is refused when the model is
 built (:func:`check_supported`).
 
 Modes:
-  * ``train``   -- full causal pass, logits, no cache (losses come with
-                   the training slice).
+  * ``train``   -- full causal pass, logits, no cache; with grad enabled,
+                   each block is checkpointed by the configuration's
+                   ``remat`` (:func:`_remat_context`). The losses
+                   (:func:`loss_fn`) take this pass, for the layer kinds
+                   of attention models (:func:`check_trainable`).
   * ``prefill`` -- causal pass that also fills the decode cache.
   * ``decode``  -- one new token against the cache (S == 1).
 
@@ -37,11 +40,15 @@ The cache is a list with one dict per decoder layer, written in place
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -260,12 +267,16 @@ def block_apply(
     mrope_positions: Optional[torch.Tensor] = None,  # (3, B, S)
     causal: bool = True,
     backend: str = "cuda",
-) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """Returns (x_out, new_cache). ``kv_len`` and ``pos0`` are unused by
-    RWKV and Mamba layers, as in the reference. A layer with cross
-    attention attends over ``memory`` after its mixer when it is given.
-    The MoE's aux loss is dropped: serving has no use for it."""
+) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+           Optional[Dict[str, Any]]]:
+    """Returns (x_out, aux_loss, new_cache), as the reference's: aux is
+    the MoE's load-balance loss (serving drops it), and ``None`` for
+    other MLPs (a zero there; here no kernel is launched for it).
+    ``kv_len`` and ``pos0`` are unused by RWKV and Mamba layers, as in the
+    reference. A layer with cross attention attends over ``memory`` after
+    its mixer when it is given."""
     eps = cfg.norm_eps
+    aux = None
     new_cache: Dict[str, Any] = {}
     h = _norm(p["norm1"], x, eps, backend=backend)
     if kind.mixer == "rwkv":
@@ -300,11 +311,11 @@ def block_apply(
         if nc is not None:
             new_cache["mlp"] = nc
     elif kind.mlp == "moe":
-        out, _ = mlpm.moe_apply(p["mlp"], h2, cfg=cfg)
+        out, aux = mlpm.moe_apply(p["mlp"], h2, cfg=cfg)
     else:
         out = mlpm.mlp_apply(p["mlp"], h2, cfg=cfg)
     x = x + out
-    return x, (new_cache if new_cache else None)
+    return x, aux, (new_cache if new_cache else None)
 
 
 # ---------------------------------------------------------------------------
@@ -413,7 +424,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None
 def _embed(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
            positions: torch.Tensor, *, backend: str) -> torch.Tensor:
     dt = getattr(torch, cfg.dtype)
-    x = p.embed[tokens].to(dt)
+    # the reference's jnp.take; as F.embedding, its gradient sums each
+    # row's contributions in float32 on the card and rounds once, where
+    # indexing's would round a bfloat16 row after every addition
+    x = torch.nn.functional.embedding(tokens, p.embed).to(dt)
     if p.pos_embed is not None:
         x = x + p.pos_embed[positions.to(device=x.device,
                                          dtype=torch.long)].to(dt)
@@ -442,32 +456,80 @@ def scatter_patches(x: torch.Tensor, patch_embeds: torch.Tensor,
     return xe[:, :S].contiguous()
 
 
+# the weight products, the ops whose outputs the remat policy "dots"
+# saves: the set of the reference's dots_with_no_batch_dims_saveable (a
+# product of activations with a 2-D weight is an mm or addmm here; the
+# attention's batched products are bmm, recomputed)
+SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in SAVED_BY_DOTS else \
+        CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context(cfg: ModelConfig):
+    """The checkpoint ``context_fn`` of the configuration's ``remat``
+    (``_remat_policy`` of the reference): ``None`` for ``"none"`` (no
+    checkpoint), the default for ``"full"`` (nothing saved), and for
+    ``"dots"`` a selective checkpoint that saves the weight products
+    (:data:`SAVED_BY_DOTS`). Remat changes what is kept for the backward,
+    not a number."""
+    if cfg.remat == "none":
+        return None
+    if cfg.remat == "dots":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _dots_policy)
+    if cfg.remat == "full":
+        return noop_context_fn
+    raise ValueError(f"remat {cfg.remat!r} not in ('none', 'dots', 'full')")
+
+
 def _run_stack(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
                positions: torch.Tensor, pos0, mode: str,
                cache: Optional[Cache], kv_len: Optional[torch.Tensor],
                backend: str, memory: Optional[torch.Tensor] = None,
                mrope_positions: Optional[torch.Tensor] = None,
-               enc: bool = False) -> Tuple[torch.Tensor, Optional[Cache]]:
+               enc: bool = False
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                          Optional[Cache]]:
     """The decoder's layers in order, or with ``enc`` the encoder's
-    (non-causal, no cache). Returns (x, new_cache)."""
+    (non-causal, no cache). In ``"train"`` mode with grad enabled each
+    block is checkpointed by ``cfg.remat`` (the reference checkpoints
+    each scanned period). Returns (x, the MoE aux losses' total or
+    ``None`` without MoE layers, new_cache)."""
     blocks = p.enc_blocks if enc else p.blocks
+    context = _remat_context(cfg) \
+        if mode == "train" and torch.is_grad_enabled() else None
+    aux_total = None
     new_cache = []
     for i, blk in enumerate(blocks):
-        x, nc = block_apply(blk, x, cfg=cfg,
-                            kind=ENC_KIND if enc else _kind(cfg, i),
-                            positions=positions, pos0=pos0,
-                            mode=mode, cache=cache[i] if cache else None,
-                            kv_len=kv_len, memory=memory,
-                            mrope_positions=mrope_positions, causal=not enc,
-                            backend=backend)
+        run = functools.partial(
+            block_apply, blk, cfg=cfg,
+            kind=ENC_KIND if enc else _kind(cfg, i), positions=positions,
+            pos0=pos0, mode=mode, cache=cache[i] if cache else None,
+            kv_len=kv_len, memory=memory, mrope_positions=mrope_positions,
+            causal=not enc, backend=backend)
+        if context is None:
+            x, aux, nc = run(x)
+        else:
+            x, aux, nc = checkpoint(run, x, use_reentrant=False,
+                                    context_fn=context)
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
         new_cache.append(nc)
-    return x, (new_cache if mode in ("prefill", "decode") else None)
+    return x, aux_total, (new_cache if mode in ("prefill", "decode")
+                          else None)
 
 
 @dataclasses.dataclass
 class Output:
-    logits: torch.Tensor                   # (B, S, Vp)
+    logits: torch.Tensor                   # (B, S, Vp); normed hidden if
+                                           # the head was not applied
     cache: Optional[Cache] = None
+    aux_loss: Optional[torch.Tensor] = None    # scalar (MoE balance);
+                                               # None without MoE layers
+    hidden: Optional[torch.Tensor] = None      # pre-norm hidden (for MTP)
 
 
 def _head(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -496,9 +558,9 @@ def encode(p: Params, cfg: ModelConfig, enc_embeds: torch.Tensor, *,
     audio stub): + ``pos_embed``, the non-causal stack, ``enc_norm``.
     Returns the memory (B, S_enc, D) in ``cfg.dtype``."""
     x, positions = _embed_frames(p, cfg, enc_embeds)
-    x, _ = _run_stack(p, x, cfg=cfg, positions=positions, pos0=0,
-                      mode="train", cache=None, kv_len=None,
-                      backend=backend, enc=True)
+    x, _, _ = _run_stack(p, x, cfg=cfg, positions=positions, pos0=0,
+                         mode="train", cache=None, kv_len=None,
+                         backend=backend, enc=True)
     return _norm(p.enc_norm, x, cfg.norm_eps, backend=backend)
 
 
@@ -511,6 +573,7 @@ def forward(
     cache: Optional[Cache] = None,
     pos0: Optional[Union[int, torch.Tensor]] = None,
     backend: str = "cuda",
+    head: bool = True,
 ) -> Output:
     """batch keys: tokens (B,S); optional positions (B,S), kv_len (B,);
     the encoder-decoder's memory (B,S_enc,D), or enc_embeds (B,S_enc,D)
@@ -518,7 +581,8 @@ def forward(
     patch_positions (B,n_patch) (:func:`scatter_patches`) and
     mrope_positions (3,B,S). ``pos0`` is the position of ``tokens[:, 0]``
     for the cache write (read from ``positions`` when not given, 0
-    without them)."""
+    without them). With ``head=False`` the logits are the normed hidden
+    state (the chunked loss applies the head itself)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     positions = batch.get("positions")
@@ -536,13 +600,138 @@ def forward(
     if cfg.frontend == "vision" and "patch_embeds" in batch:
         x = scatter_patches(x, batch["patch_embeds"],
                             batch["patch_positions"])
-    x, new_cache = _run_stack(p, x, cfg=cfg, positions=positions, pos0=pos0,
-                              mode=mode, cache=cache,
-                              kv_len=batch.get("kv_len"), backend=backend,
-                              memory=memory,
-                              mrope_positions=batch.get("mrope_positions"))
+    x, aux, new_cache = _run_stack(
+        p, x, cfg=cfg, positions=positions, pos0=pos0, mode=mode,
+        cache=cache, kv_len=batch.get("kv_len"), backend=backend,
+        memory=memory, mrope_positions=batch.get("mrope_positions"))
+    hidden = x
     x = _norm(p.final_norm, x, cfg.norm_eps, backend=backend)
-    return Output(logits=_head(p, cfg, x), cache=new_cache)
+    return Output(logits=_head(p, cfg, x) if head else x, cache=new_cache,
+                  aux_loss=aux, hidden=hidden)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a configuration with RWKV-6 or
+    Mamba layers: the backward of K6 and K7 (the reference's
+    ``wkv6_chunked`` / ``mamba_chunked``) is not ported yet."""
+    kinds = {_kind(cfg, i).mixer for i in range(cfg.num_layers)}
+    missing = sorted(kinds & {"rwkv", "mamba"})
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: training {' and '.join(missing)} layers is not "
+            f"ported yet; it comes with ROADMAP.md Queue 1 item 9b (the "
+            f"chunked WKV6 and Mamba scans as the backward of K6 and K7)")
+
+
+def _logits_nll(logits: torch.Tensor, labels: torch.Tensor,
+                vocab_size: int) -> torch.Tensor:
+    """Per-position negative log-likelihood in float32, the padded
+    vocabulary's columns masked to -1e30."""
+    lg = logits.float()
+    Vp = lg.shape[-1]
+    if Vp > vocab_size:
+        pad_mask = torch.arange(Vp, device=lg.device) < vocab_size
+        lg = torch.where(pad_mask, lg, torch.full((), -1e30,
+                                                  device=lg.device))
+    lse = torch.logsumexp(lg, -1)
+    tgt = torch.gather(lg, -1, labels[..., None])[..., 0]
+    return lse - tgt
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor,
+          vocab_size: int) -> torch.Tensor:
+    """Masked mean cross-entropy. logits (B,S,Vp) any dtype, labels (B,S)
+    int64, valid (B,S) float32."""
+    nll = _logits_nll(logits, labels, vocab_size) * valid
+    return nll.sum() / torch.clamp(valid.sum(), min=1.0)
+
+
+def _xent_chunked(p: Params, cfg: ModelConfig, hidden_normed: torch.Tensor,
+                  labels: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The same loss with the head applied one sequence chunk of
+    ``cfg.loss_chunk`` positions at a time (then the remainder), summed
+    in chunk order."""
+    B, S, D = hidden_normed.shape
+    C = min(cfg.loss_chunk, S)
+    total = torch.zeros((), dtype=torch.float32,
+                        device=hidden_normed.device)
+    for a in range(0, S, C):
+        b = min(a + C, S)
+        logits = _head(p, cfg, hidden_normed[:, a:b])
+        total = total + (_logits_nll(logits, labels[:, a:b], cfg.vocab_size)
+                         * valid[:, a:b]).sum()
+    return total / torch.clamp(valid.sum(), min=1.0)
+
+
+def _mtp_loss(p: Params, cfg: ModelConfig, hidden: torch.Tensor,
+              tokens: torch.Tensor, labels2: torch.Tensor,
+              valid2: torch.Tensor, positions: torch.Tensor, *,
+              backend: str) -> torch.Tensor:
+    """DeepSeek-V3 MTP (depth 1): predict t+2 from [norm(h_t);
+    norm(E(t+1))] through one block of the last layer's kind."""
+    m = p.mtp
+    eps = cfg.norm_eps
+    nxt = torch.roll(tokens, -1, 1)                          # token t+1
+    e = torch.nn.functional.embedding(nxt, p.embed).to(
+        getattr(torch, cfg.dtype))
+    h = torch.cat([_norm(m.norm_h, hidden, eps, backend=backend),
+                   _norm(m.norm_e, e, eps, backend=backend)], -1)
+    h = h @ m.proj
+    h, _, _ = block_apply(m.block, h, cfg=cfg,
+                              kind=kind_for_layer(cfg, cfg.num_layers - 1),
+                              positions=positions, pos0=0, mode="train",
+                              cache=None, kv_len=None, backend=backend)
+    h = _norm(m.final_norm, h, eps, backend=backend)
+    if cfg.loss_chunk > 0:
+        return _xent_chunked(p, cfg, h, labels2, valid2)
+    return _xent(_head(p, cfg, h), labels2, valid2, cfg.vocab_size)
+
+
+def loss_fn(p: Params, batch: Dict[str, torch.Tensor], *, cfg: ModelConfig,
+            mtp_weight: float = 0.3, backend: str = "cuda"
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token LM loss (+ MoE aux + MTP). batch["tokens"]: (B, S+1) --
+    inputs are [:, :-1], labels are [:, 1:]; an optional loss_mask
+    (B, S+1) masks the labels by its [:, 1:]. Returns (loss, metrics:
+    lm_loss, aux_loss with an MoE, mtp_loss with MTP, loss)."""
+    check_trainable(cfg)
+    toks = batch["tokens"].long()
+    inputs, labels = toks[:, :-1], toks[:, 1:]
+    fb = dict(batch)
+    fb["tokens"] = inputs
+    chunked = cfg.loss_chunk > 0
+    out = forward(p, fb, cfg=cfg, mode="train", backend=backend,
+                  head=not chunked)
+    valid = torch.ones(labels.shape, dtype=torch.float32,
+                       device=labels.device)
+    if "loss_mask" in batch:
+        valid = batch["loss_mask"][:, 1:].float()
+    if chunked:
+        loss = _xent_chunked(p, cfg, out.logits, labels, valid)
+    else:
+        loss = _xent(out.logits, labels, valid, cfg.vocab_size)
+    metrics = {"lm_loss": loss}
+    if cfg.moe is not None:
+        metrics["aux_loss"] = out.aux_loss
+        loss = loss + cfg.moe.aux_loss_coef * out.aux_loss
+    if cfg.mtp_depth > 0:
+        labels2 = torch.roll(labels, -1, 1)                  # token t+2
+        valid2 = valid.clone()
+        valid2[:, -1] = 0.0
+        pos = batch.get("positions")
+        if pos is None:
+            pos = positions_for(*inputs.shape, device=inputs.device)
+        lm = _mtp_loss(p, cfg, out.hidden, inputs, labels2, valid2, pos,
+                       backend=backend)
+        metrics["mtp_loss"] = lm
+        loss = loss + mtp_weight * lm
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------

@@ -821,3 +821,90 @@ def test_torch_cuda_smoke_builds_twice_in_one_checkout(card, capsys):
     assert len(builds) == 2 and builds[1]["cached"]
     for b in builds:
         assert b["max_registers"] > 0 and b["spill_bytes"] is not None
+
+
+# ---------------------------------------------------------------------------
+# training: K4's and K5's autograd Functions, and train() on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", SMOKE.TRAIN_ATTN_CASES,
+                         ids=lambda c: f"{c[0]} {c[2]}")
+def test_torch_cuda_attention_function_gradients_match_torch(card, case):
+    """ops.attention on "cuda" (K4 forward, chunked backward) against
+    "torch": the output and dq, dk, dv (v's on the fused tensor it is a
+    slice of) within 2e-2 (bf16) / 1e-4 (f32) of the largest value."""
+    from repro_torch.kernels import cuda_kernels as MK
+    from repro_torch.kernels import ops
+    label, (B, Sq, Sk, H, KV, Dqk, Dv), dtype, v_dn = case
+    g = torch.Generator(device=card).manual_seed(3)
+    mk = lambda *s: torch.randn(*s, generator=g, device=card).to(dtype)
+    q, k, vb, go = mk(B, Sq, H, Dqk), mk(B, Sk, KV, Dqk), \
+        mk(B, Sk, KV, v_dn + Dv), mk(B, Sq, H, Dv)
+    got = {}
+    for be in ("cuda", "torch"):
+        leaves = [t.detach().requires_grad_() for t in (q, k, vb)]
+        before = MK.launch_counts()["flash_attention"]
+        out = ops.attention(leaves[0], leaves[1], leaves[2][..., v_dn:],
+                            scale=Dqk ** -0.5, backend=be)
+        out.backward(go)
+        torch.cuda.synchronize()
+        assert MK.launch_counts()["flash_attention"] == \
+            before + (be == "cuda")
+        got[be] = [out.detach()] + [t.grad for t in leaves]
+    tol = SMOKE.TRAIN_TOL[dtype]
+    for a, b in zip(got["cuda"], got["torch"]):
+        assert SMOKE.rel_err(a, b) <= tol
+
+
+@pytest.mark.parametrize("case", SMOKE.TRAIN_NORM_CASES,
+                         ids=lambda c: f"{c[0]} {c[2]}")
+def test_torch_cuda_rmsnorm_function_gradients_match_torch(card, case):
+    from repro_torch.kernels import ops
+    label, shape, dtype = case
+    g = torch.Generator(device=card).manual_seed(4)
+    x = (3 * torch.randn(*shape, generator=g, device=card)).to(dtype)
+    s = (1 + 0.2 * torch.randn(shape[-1], generator=g, device=card)).to(dtype)
+    go = torch.randn(*shape, generator=g, device=card).to(dtype)
+    got = {}
+    for be in ("cuda", "torch"):
+        xl, sl = x.detach().requires_grad_(), s.detach().requires_grad_()
+        out = ops.rmsnorm(xl, sl, 1e-5, backend=be)
+        out.backward(go)
+        got[be] = [out.detach(), xl.grad, sl.grad]
+    for a, b in zip(got["cuda"], got["torch"]):
+        assert SMOKE.rel_err(a, b) <= SMOKE.TRAIN_TOL[dtype]
+
+
+def test_torch_cuda_scans_refuse_a_grad(card):
+    from repro_torch.kernels import ops
+    x = torch.randn(1, 8, 64, device=card, requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        ops.mamba_scan(x, x.detach().abs(), -torch.ones(64, 16, device=card),
+                       torch.randn(1, 8, 16, device=card),
+                       torch.randn(1, 8, 16, device=card),
+                       torch.ones(64, device=card))
+
+
+def test_torch_cuda_smoke_train_matches_torch_backend(card):
+    """Two steps of train() on the card through the kernels against the
+    plain versions, the same float32 smoke weights: the losses within
+    1e-5 relative, and K4 and K5 launched as chip_smoke.py holds them."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.kernels import cuda_kernels as MK
+    from repro_torch.launch.train import train
+    from repro_torch.models.api import build_model
+    cfg = get_model_config("qwen2-7b", smoke=True).replace(
+        dtype="float32", param_dtype="float32", remat="dots")
+    losses = {}
+    for be in ("cuda", "torch"):
+        model = build_model(cfg)
+        model.init(0)
+        MK.reset_launch_counts()
+        res = train(arch="qwen2-7b", model=model, steps=2, seq_len=64,
+                    global_batch=2, log_every=0, backend=be)
+        losses[be] = res.losses
+        if be == "cuda":
+            want = SMOKE.expected_train_launches(cfg)
+            assert MK.launch_counts() == {k: 2 * v for k, v in want.items()}
+    np.testing.assert_allclose(losses["cuda"], losses["torch"], rtol=1e-5)

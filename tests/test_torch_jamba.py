@@ -481,10 +481,10 @@ def test_torch_smoke_jamba_bf16_wide_dt_bias_each_layer_matches_jax(
             cache=None, kv_len=None)[0])
         jout = jfn(_jax_block(params, i, prefix, P), jx)
         with torch.inference_mode():
-            tout, _ = tfm.block_apply(
+            tout = tfm.block_apply(
                 model.params.blocks[i], tx, cfg=tcfg, kind=kind,
                 positions=tpos, pos0=0, mode="train", cache=None,
-                kv_len=None, backend="torch")
+                kv_len=None, backend="torch")[0]
         assert tout.dtype == torch.bfloat16
         got, want = f32(tout), f32(jout)
         rel = float(np.abs(got - want).max() / np.abs(want).max())

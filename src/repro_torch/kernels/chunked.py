@@ -13,21 +13,30 @@ The counterpart of ``repro.kernels.xla_impl``. Two parts of it are here:
   masked through a kv length, ``NEG_INF = -1e30``, float32 for all of its
   arithmetic, and its GQA rule: k and v broadcast over a group of query
   heads, and dk and dv summed over it;
+- the chunked WKV6 and Mamba scans (``wkv6_chunked`` and
+  ``mamba_chunked`` there, and here), differentiated by autograd: the
+  backward of K6 and K7 (``kernels/ops.py``), as ``jax.vjp`` of them is
+  the Pallas forwards' in the reference. They keep its arithmetic:
+  float32 throughout, the log-decay clamped at :data:`LOGW_MIN`, the
+  midpoint shift, the padding of S, the default chunks (16 and 64). Only
+  the batching differs: WKV6 forms every chunk's pair matrix, bonus and
+  state increment at once and loops over chunks for the state advance
+  alone; Mamba checkpoints each chunk, as the reference's
+  ``jax.checkpoint`` does, so that its backward holds one chunk's
+  ``(B, c, D, N)`` tensors at a time;
 - the single-token steps the reference leaves to XLA rather than to a
   Pallas kernel: decode attention over a KV cache
   (``decode_attention_xla`` there), the RWKV-6 decode step
   (``wkv6_decode``) and the Mamba decode step (``mamba_decode``).
-
-The chunked WKV6 (``wkv6_chunked``) and Mamba (``mamba_chunked``) scans,
-the backward of K6 and K7, come with their training slice (``ROADMAP.md``
-Queue 1 item 9b).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ref import NEG_INF
 
@@ -239,6 +248,216 @@ def attention_vjp(
         return _bwd(q, k, v, out, lse, g, causal=causal, window=window,
                     q_offset=q_offset, kv_len=None, scale=scale,
                     block_k=block_k)
+
+
+# ---------------------------------------------------------------------------
+# WKV6 and Mamba: the chunked scans
+# ---------------------------------------------------------------------------
+
+LOGW_MIN = -8.0     # the per-step log-decay floor: w >= e^-8 ~= 3.4e-4
+WKV6_CHUNK = 16     # the reference's default chunks
+MAMBA_CHUNK = 64
+
+
+def _pad_steps(a: torch.Tensor, s_pad: int, value: float = 0.0
+               ) -> torch.Tensor:
+    """``a`` (B, S, ...) padded along S to ``s_pad`` steps with
+    ``value``."""
+    extra = s_pad - a.shape[1]
+    if extra == 0:
+        return a
+    return F.pad(a, [0, 0] * (a.dim() - 2) + [0, extra], value=value)
+
+
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: ``minimum(maximum(x, lo), hi)``, whose gradient is
+    split in half at a tie (``torch.clamp`` passes all of it)."""
+    # the bounds filled on the device: a tensor made from a Python number
+    # is copied from the host, and the copy waits for the device
+    lo_t = torch.full((), lo, dtype=x.dtype, device=x.device)
+    hi_t = torch.full((), hi, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo_t), hi_t)
+
+
+def wkv6_chunked(
+    r: torch.Tensor,               # (B, S, H, K)
+    k: torch.Tensor,               # (B, S, H, K)
+    v: torch.Tensor,               # (B, S, H, V)
+    w: torch.Tensor,               # (B, S, H, K) decay in (0, 1)
+    u: torch.Tensor,               # (H, K)
+    s0: Optional[torch.Tensor] = None,  # (B, H, K, V)
+    *,
+    chunk: int = WKV6_CHUNK,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RWKV-6 recurrence in chunk-parallel form;
+    ``xla_impl.wkv6_chunked``. Returns (y (B, S, H, V) in r's dtype, the
+    final state (B, H, K, V) float32).
+
+    Within a chunk of ``c = min(chunk, S)`` steps every pair j < t
+    interacts through the relative decay exp(L_{t-1} - L_j), built from
+    two factors shifted by the per-channel midpoint M = L_c / 2 so that
+    neither under- nor overflows in float32; the per-step log-decay is
+    clipped to [``LOGW_MIN``, 0] (w first to [1e-12, 1]). The current
+    token adds the bonus (r_t . (u * k_t)) v_t, the state before the
+    chunk adds (r_t exp(L_{t-1}))^T S, and the state advances as
+    S <- diag(P_c) S + sum_j (k_j P_c / P_j) v_j^T. Padded steps have
+    w = 1 and zero r, k and v. Everything but the state advance is formed
+    for all chunks at once; the advance is a loop over the chunks, and
+    the state before each is kept for the inter-chunk term."""
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    if s0 is None:
+        s0 = torch.zeros((B, H, K, V), dtype=torch.float32, device=r.device)
+    else:
+        s0 = s0.float()
+    c = min(chunk, S)
+    nc = math.ceil(S / c)
+    s_pad = nc * c
+    rf, kf = (_pad_steps(a, s_pad).float().reshape(B, nc, c, H, K)
+              for a in (r, k))
+    vf = _pad_steps(v, s_pad).float().reshape(B, nc, c, H, V)
+    wf = _clip(_pad_steps(w, s_pad, 1.0).float(), 1e-12, 1.0).reshape(
+        B, nc, c, H, K)
+    uf = u.float()
+
+    logw = _clip(torch.log(wf), LOGW_MIN, 0.0)             # (B,nc,c,H,K)
+    L = torch.cumsum(logw, 2)                              # L_t
+    Lprev = L - logw                                       # L_{t-1}
+    Lc = L[:, :, -1:]                                      # (B,nc,1,H,K)
+    M = 0.5 * Lc
+    q_dec = rf * torch.exp(Lprev - M)
+    k_dec = kf * torch.exp(M - L)
+    pairs = torch.einsum("bnchk,bndhk->bnhcd", q_dec, k_dec)
+    lower = torch.ones((c, c), dtype=torch.bool, device=r.device).tril(-1)
+    pairs = torch.where(lower, pairs, torch.zeros((), device=r.device))
+    y_intra = torch.einsum("bnhcd,bndhv->bnchv", pairs, vf)
+    bonus = torch.einsum("bnchk,hk,bnchk->bnch", rf, uf, kf)
+    y_bonus = bonus[..., None] * vf
+    Pc = torch.exp(Lc[:, :, 0])[..., None]                 # (B,nc,H,K,1)
+    k_fold = kf * torch.exp(Lc - L)                        # exps <= 1
+    kv = torch.einsum("bnchk,bnchv->bnhkv", k_fold, vf)    # (B,nc,H,K,V)
+
+    # the chunks as views by unbind, whose backward stacks their gradients
+    # once (a slice's would write each into a zeroed whole)
+    state = s0
+    before = []
+    for P_i, kv_i in zip(Pc.unbind(1), kv.unbind(1)):
+        before.append(state)
+        state = P_i * state + kv_i
+    y_inter = torch.einsum("bnchk,bnhkv->bnchv", rf * torch.exp(Lprev),
+                           torch.stack(before, 1))
+    y = y_inter + y_intra + y_bonus                        # (B,nc,c,H,V)
+    y = y.reshape(B, s_pad, H, V)[:, :S]
+    return y.to(r.dtype), state
+
+
+def _slice(dim: int, start: int, stop: Optional[int] = None,
+           step: int = 1) -> tuple:
+    return (slice(None),) * dim + (slice(start, stop, step),)
+
+
+def _interleave(a: torch.Tensor, b: torch.Tensor, dim: int
+                ) -> torch.Tensor:
+    """a0, b0, a1, b1, ... along ``dim``; ``a`` is as long as ``b`` or one
+    longer."""
+    n = b.shape[dim]
+    out = torch.stack([a.narrow(dim, 0, n), b], dim + 1).flatten(dim,
+                                                                 dim + 1)
+    if a.shape[dim] > n:
+        out = torch.cat([out, a.narrow(dim, n, 1)], dim)
+    return out
+
+
+def associative_scan(
+    combine: Callable[[Sequence[torch.Tensor], Sequence[torch.Tensor]],
+                      List[torch.Tensor]],
+    elems: Sequence[torch.Tensor], dim: int) -> List[torch.Tensor]:
+    """The inclusive scan of ``elems`` along ``dim`` under the associative
+    ``combine(earlier, later)``, in ``jax.lax.associative_scan``'s order:
+    combine adjacent pairs (0, 1), (2, 3), ...; scan those recursively,
+    which gives the prefixes at the odd positions; combine each with the
+    next even element for the prefixes at the even positions (the first
+    is the first element); interleave. log2(n) levels of torch ops."""
+    n = elems[0].shape[dim]
+    if n < 2:
+        return list(elems)
+    reduced = combine([e[_slice(dim, 0, -1, 2)] for e in elems],
+                      [e[_slice(dim, 1, None, 2)] for e in elems])
+    odd = associative_scan(combine, reduced, dim)
+    nxt = [e[_slice(dim, 2, None, 2)] for e in elems]
+    if n % 2 == 0:
+        even = combine([e[_slice(dim, 0, -1)] for e in odd], nxt)
+    else:
+        even = combine(odd, nxt)
+    even = [torch.cat([e[_slice(dim, 0, 1)], x], dim)
+            for e, x in zip(elems, even)]
+    return [_interleave(a, b, dim) for a, b in zip(even, odd)]
+
+
+def _linear_combine(e1, e2):
+    """h -> a h + b composed: (a1, b1) then (a2, b2)."""
+    a1, b1 = e1
+    a2, b2 = e2
+    return [a2 * a1, a2 * b1 + b2]
+
+
+def _mamba_chunk(h, xc, dtc, Bc, Cc, Af, Df):
+    """One chunk of :func:`mamba_chunked` (the reference's checkpointed
+    body): (the state after it (B, D, N), y (B, c, D))."""
+    dA = torch.exp(dtc[..., None] * Af)                    # (B,c,D,N)
+    dBx = (dtc * xc)[..., None] * Bc[:, :, None, :]        # (B,c,D,N)
+    a_cum, b_cum = associative_scan(_linear_combine, (dA, dBx), 1)
+    hs = a_cum * h[:, None] + b_cum
+    y = torch.einsum("bcdn,bcn->bcd", hs, Cc) + Df * xc
+    return hs[:, -1], y
+
+
+def mamba_chunked(
+    x: torch.Tensor,               # (B, S, D)
+    dt: torch.Tensor,              # (B, S, D)
+    A: torch.Tensor,               # (D, N) negative
+    Bm: torch.Tensor,              # (B, S, N)
+    C: torch.Tensor,               # (B, S, N)
+    D: torch.Tensor,               # (D,)
+    h0: Optional[torch.Tensor] = None,  # (B, D, N)
+    *,
+    chunk: int = MAMBA_CHUNK,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The selective scan by chunks; ``xla_impl.mamba_chunked``. Returns
+    (y (B, S, D) in x's dtype, the final state (B, D, N) float32).
+
+    h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t composes associatively as
+    (a, b) pairs: within a chunk of ``c = min(chunk, S)`` steps the pairs
+    are scanned by :func:`associative_scan` (the reference's
+    ``jax.lax.associative_scan``, in its order), and the state carried
+    into the chunk is applied after. A loop over the chunks carries the
+    state; with grad enabled each chunk is checkpointed
+    (``torch.utils.checkpoint``, non-reentrant), so that the backward
+    keeps only the chunks' inputs and recomputes one chunk's graph at a
+    time. Padded steps are zeros (dA = 1, no input)."""
+    B, S, Dm = x.shape
+    N = A.shape[-1]
+    if h0 is None:
+        h = torch.zeros((B, Dm, N), dtype=torch.float32, device=x.device)
+    else:
+        h = h0.float()
+    c = min(chunk, S)
+    nc = math.ceil(S / c)
+    # the chunks as views by split, whose backward concatenates their
+    # gradients once
+    parts = zip(*(_pad_steps(a, nc * c).float().split(c, 1)
+                  for a in (x, dt, Bm, C)))
+    Af, Df = A.float(), D.float()
+    ys = []
+    for xc, dtc, Bc, Cc in parts:
+        args = (h, xc, dtc, Bc, Cc, Af, Df)
+        if torch.is_grad_enabled():
+            h, y = checkpoint(_mamba_chunk, *args, use_reentrant=False)
+        else:
+            h, y = _mamba_chunk(*args)
+        ys.append(y)
+    y = torch.cat(ys, 1)[:, :S]
+    return y.to(x.dtype), h
 
 
 def decode_attention(

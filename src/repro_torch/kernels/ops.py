@@ -24,13 +24,21 @@ backward is the reference's, on both backends:
     chunked flash backward, which recomputes the output and the
     logsumexp from q, k and v (``jax.vjp(flash_attention_xla)`` there).
     K4's output is not read by it;
-  * rmsnorm -- autograd of the plain version ``ref.rmsnorm``.
+  * rmsnorm -- autograd of the plain version ``ref.rmsnorm``;
+  * wkv6 and mamba_scan -- autograd of the chunked scans,
+    :func:`repro_torch.kernels.chunked.wkv6_chunked` (chunk 16) and
+    :func:`~repro_torch.kernels.chunked.mamba_chunked` (chunk 64),
+    recomputed from the inputs (``jax.vjp`` of ``xla_impl``'s there).
+    With the cotangents of y and of the final state; the state's is
+    ``None`` when the final state is not used, as in training.
 
-No backward kernel exists in the reference, and none here. The backward
-of K6 and K7 (``wkv6_chunked`` / ``mamba_chunked``) is not ported yet:
-on ``"cuda"``, :func:`wkv6` and :func:`mamba_scan` raise
-``NotImplementedError`` when an input requires grad, rather than return
-a result cut off from the gradient.
+This split is the reference's, and so is what it implies for WKV6: the
+forward (K6, the Pallas kernel, or the plain recurrence) keeps no clamp
+of the decay, while the backward is the gradient of the chunked form,
+which clamps the per-step log-decay at ``chunked.LOGW_MIN`` (-8). For a
+decay below e^-8 the gradient is not that of the forward that ran
+(``ROADMAP.md`` Queue 3 item 6). No backward kernel exists in the
+reference, and none here.
 """
 from __future__ import annotations
 
@@ -87,6 +95,23 @@ def _attention_fwd(q, k, v, *, causal, window, q_offset, scale, backend):
 def _needs_grad(*ts: Optional[torch.Tensor]) -> bool:
     return torch.is_grad_enabled() and \
         any(t is not None and t.requires_grad for t in ts)
+
+
+def _vjp(fn, inputs, cotangents, needs):
+    """The gradients of ``fn``'s outputs at ``inputs`` for
+    ``cotangents`` (an output whose cotangent is ``None`` is left out),
+    recomputed under grad; ``None`` for an input that is ``None`` or that
+    ``needs`` does not ask for."""
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(bool(n))
+                  for t, n in zip(inputs, needs)]
+        outs = fn(*leaves)
+        pairs = [(o, g) for o, g in zip(outs, cotangents) if g is not None]
+        wrt = [t for t in leaves if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                         [g for _, g in pairs]))
+        return tuple(next(grads) if t is not None and t.requires_grad
+                     else None for t in leaves)
 
 
 def attention(
@@ -158,14 +183,8 @@ def rmsnorm_vjp(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     """(dx, dscale) of RMSNorm at (x, scale) for the cotangent ``g``:
     autograd of the plain version, recomputed from the inputs (``None``
     where ``needs`` says no)."""
-    with torch.enable_grad():
-        xd = x.detach().requires_grad_(needs[0])
-        sd = scale.detach().requires_grad_(needs[1])
-        y = ref.rmsnorm(xd, sd, eps)
-        wrt = [t for t in (xd, sd) if t.requires_grad]
-        grads = iter(torch.autograd.grad(y, wrt, g))
-    return (next(grads) if needs[0] else None,
-            next(grads) if needs[1] else None)
+    return _vjp(lambda x, s: (ref.rmsnorm(x, s, eps),), (x, scale), (g,),
+                needs)
 
 
 def _rmsnorm_fwd(x, scale, eps, *, backend):
@@ -184,12 +203,34 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5, *,
     return _rmsnorm_fwd(x, scale, eps, backend=backend)
 
 
-def _refuse_grad(op: str, *ts: Optional[torch.Tensor]) -> None:
-    if _needs_grad(*ts):
-        raise NotImplementedError(
-            f"{op} on backend='cuda' has no backward yet: the reference's "
-            f"chunked backward of its kernel comes with ROADMAP.md Queue 1 "
-            f"item 9b (RWKV-6 and Jamba training)")
+class _WKV6(torch.autograd.Function):
+    """K6 (``"cuda"``) or the plain recurrence (``"torch"``) forward,
+    with no clamp; the backward is :func:`wkv6_vjp`."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0, backend):
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        ctx.set_materialize_grads(False)
+        return _wkv6_fwd(r, k, v, w, u, s0, backend=backend)
+
+    @staticmethod
+    def backward(ctx, gy, gs):
+        return (*wkv6_vjp(*ctx.saved_tensors, gy, gs,
+                          needs=ctx.needs_input_grad[:6]), None)
+
+
+def wkv6_vjp(r, k, v, w, u, s0, gy, gs, needs=(True,) * 6):
+    """(dr, dk, dv, dw, du, ds0) of the chunked WKV6 at the inputs for
+    the cotangents of y and of the final state (either may be ``None``):
+    autograd of :func:`chunked.wkv6_chunked`, recomputed from the
+    inputs."""
+    return _vjp(chunked.wkv6_chunked, (r, k, v, w, u, s0), (gy, gs), needs)
+
+
+def _wkv6_fwd(r, k, v, w, u, s0, *, backend):
+    if backend == "torch":
+        return ref.wkv6(r, k, v, w, u, s0)
+    return wkv6_kernel(r, k, v, w, u, s0)
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -197,15 +238,12 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          s0: Optional[torch.Tensor] = None, *, backend: str = "cuda"
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """RWKV-6 recurrence -> (y, final state): K6 on ``"cuda"``, the plain
-    sequential recurrence on ``"torch"`` (differentiated by autograd).
-    ``"cuda"`` raises ``NotImplementedError`` when an input requires
-    grad."""
-    if backend == "cuda":
-        _refuse_grad("wkv6", r, k, v, w, u, s0)
+    sequential recurrence on ``"torch"``. Differentiable on both
+    backends: the backward is the chunked WKV6's (:func:`wkv6_vjp`)."""
     check_backend(backend, r)
-    if backend == "torch":
-        return ref.wkv6(r, k, v, w, u, s0)
-    return wkv6_kernel(r, k, v, w, u, s0)
+    if _needs_grad(r, k, v, w, u, s0):
+        return _WKV6.apply(r, k, v, w, u, s0, backend)
+    return _wkv6_fwd(r, k, v, w, u, s0, backend=backend)
 
 
 def wkv6_decode(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -217,20 +255,49 @@ def wkv6_decode(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return chunked.wkv6_decode(r, k, v, w, u, state)
 
 
+class _MambaScan(torch.autograd.Function):
+    """K7 (``"cuda"``) or the plain recurrence (``"torch"``) forward; the
+    backward is :func:`mamba_scan_vjp`."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, C, D, h0, backend):
+        ctx.save_for_backward(x, dt, A, Bm, C, D, h0)
+        ctx.set_materialize_grads(False)
+        return _mamba_scan_fwd(x, dt, A, Bm, C, D, h0, backend=backend)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        return (*mamba_scan_vjp(*ctx.saved_tensors, gy, gh,
+                                needs=ctx.needs_input_grad[:7]), None)
+
+
+def mamba_scan_vjp(x, dt, A, Bm, C, D, h0, gy, gh, needs=(True,) * 7):
+    """(dx, ddt, dA, dB, dC, dD, dh0) of the chunked selective scan at the
+    inputs for the cotangents of y and of the final state (either may be
+    ``None``): autograd of :func:`chunked.mamba_chunked`, recomputed from
+    the inputs, one checkpointed chunk at a time."""
+    return _vjp(chunked.mamba_chunked, (x, dt, A, Bm, C, D, h0), (gy, gh),
+                needs)
+
+
+def _mamba_scan_fwd(x, dt, A, Bm, C, D, h0, *, backend):
+    if backend == "torch":
+        return ref.mamba_scan(x, dt, A, Bm, C, D, h0)
+    return mamba_scan_kernel(x, dt, A, Bm, C, D, h0)
+
+
 def mamba_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                Bm: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
                h0: Optional[torch.Tensor] = None, *, backend: str = "cuda"
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mamba-1 selective scan -> (y, final state): K7 on ``"cuda"``, the
-    plain sequential recurrence on ``"torch"`` (differentiated by
-    autograd). ``h0=None`` is zeros. ``"cuda"`` raises
-    ``NotImplementedError`` when an input requires grad."""
-    if backend == "cuda":
-        _refuse_grad("mamba_scan", x, dt, A, Bm, C, D, h0)
+    plain sequential recurrence on ``"torch"``. ``h0=None`` is zeros.
+    Differentiable on both backends: the backward is the chunked scan's
+    (:func:`mamba_scan_vjp`)."""
     check_backend(backend, x)
-    if backend == "torch":
-        return ref.mamba_scan(x, dt, A, Bm, C, D, h0)
-    return mamba_scan_kernel(x, dt, A, Bm, C, D, h0)
+    if _needs_grad(x, dt, A, Bm, C, D, h0):
+        return _MambaScan.apply(x, dt, A, Bm, C, D, h0, backend)
+    return _mamba_scan_fwd(x, dt, A, Bm, C, D, h0, backend=backend)
 
 
 def mamba_decode(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -10,9 +10,9 @@ not its enqueue.
 
 Devices and backends: ``device=None`` is the card and raises
 ``RuntimeError`` without one; ``backend="cuda"`` (the default) runs the
-hand-written kernels (K4 and K5 in every forward and remat recompute)
-and refuses the CPU. The CPU is used only when asked for by name:
-``device="cpu", backend="torch"``. Checkpointing (``ckpt_dir``,
+hand-written kernels (K4, K5, K6 and K7, as the model's layers have
+them, in every forward and remat recompute) and refuses the CPU. The CPU
+is used only when asked for by name: ``device="cpu", backend="torch"``. Checkpointing (``ckpt_dir``,
 ``ckpt_every``, ``resume``) is refused until ``CheckpointManager`` is
 ported (``ROADMAP.md`` Queue 1 item 11), and so is the mesh.
 

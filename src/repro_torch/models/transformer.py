@@ -27,8 +27,9 @@ Modes:
   * ``train``   -- full causal pass, logits, no cache; with grad enabled,
                    each block is checkpointed by the configuration's
                    ``remat`` (:func:`_remat_context`). The losses
-                   (:func:`loss_fn`) take this pass, for the layer kinds
-                   of attention models (:func:`check_trainable`).
+                   (:func:`loss_fn`) take this pass, for every layer
+                   kind: the attention, RMSNorm, WKV6 and Mamba ops are
+                   differentiable on both kernel backends.
   * ``prefill`` -- causal pass that also fills the decode cache.
   * ``decode``  -- one new token against the cache (S == 1).
 
@@ -615,19 +616,6 @@ def forward(
 # ---------------------------------------------------------------------------
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration with RWKV-6 or
-    Mamba layers: the backward of K6 and K7 (the reference's
-    ``wkv6_chunked`` / ``mamba_chunked``) is not ported yet."""
-    kinds = {_kind(cfg, i).mixer for i in range(cfg.num_layers)}
-    missing = sorted(kinds & {"rwkv", "mamba"})
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: training {' and '.join(missing)} layers is not "
-            f"ported yet; it comes with ROADMAP.md Queue 1 item 9b (the "
-            f"chunked WKV6 and Mamba scans as the backward of K6 and K7)")
-
-
 def _logits_nll(logits: torch.Tensor, labels: torch.Tensor,
                 vocab_size: int) -> torch.Tensor:
     """Per-position negative log-likelihood in float32, the padded
@@ -699,7 +687,6 @@ def loss_fn(p: Params, batch: Dict[str, torch.Tensor], *, cfg: ModelConfig,
     inputs are [:, :-1], labels are [:, 1:]; an optional loss_mask
     (B, S+1) masks the labels by its [:, 1:]. Returns (loss, metrics:
     lm_loss, aux_loss with an MoE, mtp_loss with MTP, loss)."""
-    check_trainable(cfg)
     toks = batch["tokens"].long()
     inputs, labels = toks[:, :-1], toks[:, 1:]
     fb = dict(batch)

@@ -876,14 +876,59 @@ def test_torch_cuda_rmsnorm_function_gradients_match_torch(card, case):
         assert SMOKE.rel_err(a, b) <= SMOKE.TRAIN_TOL[dtype]
 
 
-def test_torch_cuda_scans_refuse_a_grad(card):
+@pytest.mark.parametrize(
+    "kind,case", [("wkv6", c) for c in SMOKE.TRAIN_WKV_CASES]
+    + [("mamba_scan", c) for c in SMOKE.TRAIN_MAMBA_CASES],
+    ids=lambda c: c if isinstance(c, str) else f"{c[0]} {c[2]}")
+def test_torch_cuda_scan_function_gradients_match_torch(card, kind, case):
+    """ops.wkv6 / ops.mamba_scan on "cuda" (K6 / K7 forward, the chunked
+    scan backward) against "torch": y, the final state and every input's
+    gradient within 2e-2 (bf16) / 1e-4 (f32) of the largest value, the
+    state's cotangent None as in training; the gradients are the same
+    function of the same inputs on both backends."""
     from repro_torch.kernels import ops
-    x = torch.randn(1, 8, 64, device=card, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        ops.mamba_scan(x, x.detach().abs(), -torch.ones(64, 16, device=card),
-                       torch.randn(1, 8, 16, device=card),
-                       torch.randn(1, 8, 16, device=card),
-                       torch.ones(64, device=card))
+    label, shape, dtype, rng = case
+    if kind == "wkv6":
+        r, k, v, w, u, _ = SMOKE.wkv_inputs(shape, False, rng, dtype,
+                                            seed=5)
+        leaves, fn = (r, k, v, w, u), ops.wkv6
+        go, grad_fn = torch.randn(*v.shape, device=card).to(dtype), \
+            "_WKV6Backward"
+    else:
+        leaves = SMOKE.mamba_inputs(shape, None, rng, dtype, seed=6)[:6]
+        fn, grad_fn = ops.mamba_scan, "_MambaScanBackward"
+        go = torch.randn(*leaves[0].shape, device=card).to(dtype)
+    row = SMOKE.function_check(kind, label, shape, dtype, grad_fn,
+                               lambda ls, be: fn(*ls, backend=be), leaves,
+                               (go, None))
+    assert row["ok"], row
+    assert row["grads_bit_identical"], row
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-v0.1-52b"])
+def test_torch_cuda_smoke_ssm_train_matches_torch_backend(card, arch):
+    """Two steps of train() on the card through K6 / K7 (and K4, K5 for
+    Jamba) against the plain versions, the same float32 smoke weights:
+    the losses within 1e-5 relative, and the kernels launched as
+    chip_smoke.py holds them."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.kernels import cuda_kernels as MK
+    from repro_torch.launch.train import train
+    from repro_torch.models.api import build_model
+    cfg = get_model_config(arch, smoke=True).replace(
+        dtype="float32", param_dtype="float32", remat="dots")
+    losses = {}
+    for be in ("cuda", "torch"):
+        model = build_model(cfg)
+        model.init(0)
+        MK.reset_launch_counts()
+        res = train(arch=arch, model=model, steps=2, seq_len=64,
+                    global_batch=2, log_every=0, backend=be)
+        losses[be] = res.losses
+        if be == "cuda":
+            want = SMOKE.expected_train_launches(cfg)
+            assert MK.launch_counts() == {k: 2 * v for k, v in want.items()}
+    np.testing.assert_allclose(losses["cuda"], losses["torch"], rtol=1e-5)
 
 
 def test_torch_cuda_smoke_train_matches_torch_backend(card):

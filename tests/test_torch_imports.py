@@ -34,6 +34,7 @@ def test_torch_port_has_the_expected_files():
                  "src/repro_torch/configs/base.py",
                  "src/repro_torch/configs/qwen2_7b.py",
                  "src/repro_torch/core/coordination.py",
+                 "src/repro_torch/core/diagnostics.py",
                  "src/repro_torch/kernels/ref.py",
                  "src/repro_torch/kernels/chunked.py",
                  "src/repro_torch/kernels/flash_attention.py",

@@ -9,8 +9,8 @@ vjp, against ``xla_impl.flash_attention_xla`` and ``jax.vjp`` of it
 ``backend="torch"`` against the JAX ``ops.attention`` / ``ops.rmsnorm``
 under ``set_backend("interpret")`` -- the Pallas forward in interpret
 mode with its ``custom_vjp`` backward (float32 1e-4, bfloat16 2e-2 of the
-largest value); the refusals of ``wkv6`` and ``mamba_scan`` on
-``backend="cuda"`` when an input requires grad.
+largest value). The scans' Functions are held in
+``test_torch_train_scans.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -220,34 +220,3 @@ def test_torch_attention_with_kv_len_stays_on_the_plain_path():
     assert type(out.grad_fn).__name__ != "_AttentionBackward"
     out.sum().backward()
     assert float(k.grad[1, 3:].abs().max()) == 0.0
-
-
-# ---------------------------------------------------------------------------
-# K6 and K7 have no backward yet: "cuda" refuses a grad
-# ---------------------------------------------------------------------------
-
-
-def _scan_args(op):
-    rng = np.random.default_rng(7)
-    t = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
-        np.float32))
-    if op == "wkv6":
-        return [t(1, 4, 2, 8), t(1, 4, 2, 8), t(1, 4, 2, 8),
-                torch.sigmoid(t(1, 4, 2, 8)), t(2, 8)]
-    return [t(1, 4, 16), torch.nn.functional.softplus(t(1, 4, 16)),
-            -torch.exp(t(16, 4)), t(1, 4, 4), t(1, 4, 4), t(16)]
-
-
-@pytest.mark.parametrize("op", ["wkv6", "mamba_scan"])
-def test_torch_scans_on_cuda_refuse_a_grad(op):
-    args = _scan_args(op)
-    args[0].requires_grad_()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9b"):
-        getattr(ops, op)(*args, backend="cuda")
-    # without a grad, a CPU tensor is refused as before
-    with pytest.raises(ValueError, match="backend='cuda'"):
-        getattr(ops, op)(*[a.detach() for a in args], backend="cuda")
-    # the plain version is differentiated by autograd
-    y, _ = getattr(ops, op)(*args, backend="torch")
-    y.sum().backward()
-    assert args[0].grad is not None

@@ -11,6 +11,7 @@ from repro_torch.core.diagnostics import (DiagnosticReport,     # noqa: F401
                                           expected_max_factor)
 from repro_torch.core.instrumentation import (CollectiveTrace,  # noqa: F401
                                               IterationRecord, LocalityInfo,
-                                              PhaseRecorder, summarize)
+                                              PhaseRecorder, sample_locality,
+                                              summarize)
 from repro_torch.core.pacing import (PacingBank,                # noqa: F401
                                      PacingController, PacingDecision)

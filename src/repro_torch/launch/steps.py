@@ -3,13 +3,24 @@ decode.
 
 The counterpart of ``repro.launch.steps`` (``make_train_step``,
 ``make_prefill_step``, ``make_decode_step``, whose decode step takes the
-encoder-decoder's ``memory``). There is no ``jit`` and no sharding to
-attach on one card: a step is the model call with the kernel backend
-bound. The train step holds no parameters of its own: the model does,
-and the step updates them in place (the reference's jitted step donates
-them and returns new ones), so it maps ``(opt_state, batch)`` to
-``(opt_state, metrics)``. The dry-run lowering comes with its slice
-(``ROADMAP.md``).
+encoder-decoder's ``memory``). There is no ``jit``: a step is the model
+call with the kernel backend bound. The train step holds no parameters
+of its own: the model does, and the step updates them in place (the
+reference's jitted step donates them and returns new ones), so it maps
+``(opt_state, batch)`` to ``(opt_state, metrics)``.
+
+Under a data-parallel ``mesh`` (``launch.mesh``; a ``model`` axis larger
+than 1 is refused) every rank is handed the same global batch and takes
+its slice by its coordinate on ``batch_axes(mesh)``, as GSPMD shards the
+batch; the gradients are averaged over ``pod x data``
+(``optim.compress.hierarchical_grad_reduce(compress="none")``) and the
+loss metrics over the ranks. That is the global batch's gradient when
+each rank's share of the loss's tokens is equal (no ``loss_mask``; a MoE
+aux loss is averaged over the ranks, where GSPMD takes it over the whole
+batch). With ``opt_cfg.zero1`` the moments keep this rank's ZeRO-1 slice
+(``optim.adamw.Zero1``, the step's ``zero`` attribute: build the state
+with ``init_opt_state(cfg, params, step.zero)``). The dry-run lowering
+comes with its slice (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -18,8 +29,10 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import OptimizerConfig
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.api import Model
-from repro_torch.optim import adamw_update, decay_mask
+from repro_torch.optim import adamw_update, decay_mask, zero1_layout
+from repro_torch.optim.compress import hierarchical_grad_reduce
 
 
 def _split(batch: Dict[str, torch.Tensor], k: int):
@@ -42,48 +55,79 @@ def _split(batch: Dict[str, torch.Tensor], k: int):
     return out
 
 
+def _local(batch: Dict[str, torch.Tensor], n: int, idx: int):
+    """This rank's slice ``idx`` of ``n`` of the batch (see :func:`_split`)."""
+    return _split(batch, n)[idx] if n > 1 else batch
+
+
+def _grads(model: Model, params: Dict[str, torch.Tensor], batch, backend):
+    """(every parameter's gradient of the batch's loss, the loss's metrics
+    detached); a parameter the loss does not reach has a zero gradient,
+    and the parameters hold no gradient after."""
+    for p in params.values():
+        p.grad = None
+    loss, metrics = model.loss(batch, backend=backend)
+    loss.backward()
+    grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+             for n, p in params.items()}
+    for p in params.values():
+        p.grad = None
+    return grads, {k: v.detach() for k, v in metrics.items()}
+
+
 def make_train_step(model: Model, opt_cfg: OptimizerConfig,
-                    microbatches: int = 1, backend: str = "cuda"):
+                    microbatches: int = 1, backend: str = "cuda",
+                    mesh=None):
     """Plain step (microbatches=1) or gradient-accumulation step.
 
     The plain step takes the loss's gradient with respect to every
     parameter (``loss.backward()``) and applies ``adamw_update``. With
-    accumulation, each microbatch's gradient is cast to float32 and added
-    into a float32 accumulator (the reference's ZeRO reduce-scatter of it
-    is the identity with no mesh), the mean is cast to each parameter's
-    dtype, and the loss and aux loss are the microbatches' means. The
-    parameters must require grad (``model.requires_grad_(True)``); a
-    parameter the loss does not reach has a zero gradient. Gradients are
-    dropped after the update."""
+    accumulation, the global batch is split into microbatches, each
+    rank takes its slice of each, each microbatch's gradient (averaged
+    over the mesh's ranks by an all-reduce, where the reference
+    reduce-scatters it into the accumulator, moving half the bytes) is
+    cast to float32 and added into a float32 accumulator (under ZeRO-1
+    this rank's slice of it only, gathered whole before the update, so
+    the global norm is the whole gradient's), the mean is cast to each
+    parameter's dtype, and the loss and aux loss are the microbatches'
+    means. The parameters must require grad
+    (``model.requires_grad_(True)``); a parameter the loss does not reach
+    has a zero gradient. Gradients are dropped after the update. The
+    module's docstring says what ``mesh`` changes."""
     params = dict(model.params.named_parameters())
     if not all(p.requires_grad for p in params.values()):
         raise ValueError("the model's parameters do not require grad: call "
                          "model.requires_grad_(True) before training")
     decay = decay_mask(model.cfg, params)
+    zero = None
+    dp, idx = 1, 0
+    if mesh is not None:
+        mesh_lib.require_data_parallel(mesh)
+        axes = mesh_lib.batch_axes(mesh)
+        dp, idx = mesh_lib.dp_size(mesh), mesh_lib.coordinate(mesh, axes)
+        zero = zero1_layout(opt_cfg, params, model.cfg, mesh)
+
+    def reduce(tree):
+        if mesh is None:
+            return tree
+        return hierarchical_grad_reduce(tree, mesh=mesh, compress="none")
 
     def grads_of(batch):
-        for p in params.values():
-            p.grad = None
-        loss, metrics = model.loss(batch, backend=backend)
-        loss.backward()
-        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for n, p in params.items()}
-        for p in params.values():
-            p.grad = None
-        return grads, {k: v.detach() for k, v in metrics.items()}
+        grads, metrics = _grads(model, params, _local(batch, dp, idx),
+                                backend)
+        return reduce(grads), metrics
 
     def train_step(opt_state, batch):
         grads, metrics = grads_of(batch)
         _, opt_state, opt_metrics = adamw_update(opt_cfg, params, grads,
-                                                 opt_state, decay)
-        return opt_state, dict(metrics, **opt_metrics)
-
-    if microbatches <= 1:
-        return train_step
+                                                 opt_state, decay, zero)
+        return opt_state, dict(reduce(metrics), **opt_metrics)
 
     def accum_step(opt_state, batch):
         k = microbatches
-        acc = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        shard = (lambda n, t: t) if zero is None else zero.shard
+        acc = {n: torch.zeros(shard(n, p).shape, dtype=torch.float32,
+                              device=p.device)
                for n, p in params.items()}
         dev = next(iter(params.values())).device
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
@@ -91,20 +135,23 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig,
         for mb in _split(batch, k):
             g, metrics = grads_of(mb)
             for n in acc:
-                acc[n] += g[n].float()
+                acc[n] += shard(n, g[n]).float()
             del g
             loss_sum = loss_sum + metrics["loss"]
             aux_sum = aux_sum + metrics.get("aux_loss", 0.0)
         kt = torch.full((), float(k), dtype=torch.float32, device=dev)
-        grads = {n: (acc.pop(n) / kt).to(p.dtype)
+        gather = (lambda n, t: t) if zero is None else zero.gather
+        grads = {n: (gather(n, acc.pop(n)) / kt).to(p.dtype)
                  for n, p in params.items()}
         _, opt_state, opt_metrics = adamw_update(opt_cfg, params, grads,
-                                                 opt_state, decay)
-        metrics = {"loss": loss_sum / kt, "lm_loss": loss_sum / kt,
-                   "aux_loss": aux_sum / kt, **opt_metrics}
-        return opt_state, metrics
+                                                 opt_state, decay, zero)
+        metrics = reduce({"loss": loss_sum / kt, "lm_loss": loss_sum / kt,
+                          "aux_loss": aux_sum / kt})
+        return opt_state, dict(metrics, **opt_metrics)
 
-    return accum_step
+    step = train_step if microbatches <= 1 else accum_step
+    step.zero = zero
+    return step
 
 
 def make_prefill_step(model: Model, max_len: int, backend: str = "cuda"):

@@ -1,10 +1,10 @@
 """End-to-end training driver: data pipeline -> train step -> coordination
-agent (the paper's layer).
+agent (the paper's layer) -> checkpoint/restart.
 
-The counterpart of ``repro.launch.train`` on one card. The coordination
-agent wraps the dispatch loop as the paper prescribes: no change to the
-step function, bounded pacing applied between iterations, per-phase
-timings recorded for the diagnostics report. The dispatch ends in
+The counterpart of ``repro.launch.train``. The coordination agent wraps
+the dispatch loop as the paper prescribes: no change to the step
+function, bounded pacing applied between iterations, per-phase timings
+recorded for the diagnostics report. The dispatch ends in
 ``torch.cuda.synchronize()`` on the card, so the agent times the step and
 not its enqueue.
 
@@ -12,28 +12,52 @@ Devices and backends: ``device=None`` is the card and raises
 ``RuntimeError`` without one; ``backend="cuda"`` (the default) runs the
 hand-written kernels (K4, K5, K6 and K7, as the model's layers have
 them, in every forward and remat recompute) and refuses the CPU. The CPU
-is used only when asked for by name: ``device="cpu", backend="torch"``. Checkpointing (``ckpt_dir``,
-``ckpt_every``, ``resume``) is refused until ``CheckpointManager`` is
-ported (``ROADMAP.md`` Queue 1 item 11), and so is the mesh.
+is used only when asked for by name: ``device="cpu", backend="torch"``.
+
+Checkpoints (``ckpt_dir``, ``ckpt_every``, ``resume``) follow the
+reference: ``(params, opt_state)`` is saved in the reference's layout
+(``ckpt.CheckpointManager``, ``models.convert.train_state_tree``) every
+``ckpt_every`` steps with ``{"next_step", "arch"}``, and ``resume``
+restarts from the newest one at its ``next_step``, the data stream
+included (``Prefetcher(start_step=)``), so a resumed run takes the same
+steps as a straight one. ``ckpt_every`` or ``resume`` without
+``ckpt_dir``, and a ``ckpt_dir`` with neither, are refused.
+
+``mesh`` (``launch.mesh``, over the running process group) trains data
+parallel: ``make_train_step(..., mesh=)`` on every rank, each taking its
+slice of the same global batch; with ZeRO-1 (the optimizer's default) a
+checkpoint gathers the moments' slices, rank 0 writes whole leaves as the
+reference's one process does and the other ranks wait at a barrier, and
+a restore reads whole leaves and keeps this rank's slice, so a checkpoint
+written at one world size restores at another.
 
 Run it as ``PYTHONPATH=src python -m repro_torch.launch.train`` (smoke
-configuration, seeded random weights).
+configuration, seeded random weights); under ``torchrun`` it trains over
+a ``(data, model=1)`` mesh of the ranks.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import time
 from typing import Any, Dict, Optional
 
 import torch
 
+import torch.distributed as dist
+
+from repro_torch.ckpt import CheckpointManager, Stacked
+from repro_torch.ckpt.checkpoint import _flatten_with_paths
 from repro_torch.configs import (OptimizerConfig, PacingConfig,
                                  get_model_config)
 from repro_torch.core import CoordinationAgent
 from repro_torch.data import Prefetcher, SyntheticLM
+from repro_torch.ft import RecoveryLog
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.steps import make_train_step
+from repro_torch.models import convert
 from repro_torch.models.api import Model, build_model
 from repro_torch.optim import init_opt_state
 
@@ -58,6 +82,7 @@ def train(
     ckpt_dir: Optional[str] = None,
     ckpt_every: int = 0,
     resume: bool = False,
+    mesh=None,
     opt_cfg: Optional[OptimizerConfig] = None,
     log_every: int = 5,
     model: Optional[Model] = None,
@@ -71,13 +96,19 @@ def train(
     configuration is then the one trained (it must be ``arch``'s) and
     whose device is used; its parameters are made trainable and updated
     in place. Without it the ``arch`` model is built on ``device`` and
-    initialised from ``seed``. ``stats``, when given, receives per step
-    ``step_s`` (host clock around the synchronised step), ``loss``,
-    ``lr`` and ``grad_norm``."""
-    if ckpt_dir is not None or ckpt_every or resume:
-        raise NotImplementedError(
-            "checkpointing is not ported yet: CheckpointManager comes with "
-            "ROADMAP.md Queue 1 item 11")
+    initialised from ``seed``. The default ``opt_cfg`` depends on
+    ``steps`` (its warmup and total steps), so a resumed run must be
+    given the same ``steps`` as the run that saved. ``stats``, when
+    given, receives per step ``step_s`` (host clock around the
+    synchronised step), ``loss``, ``lr`` and ``grad_norm``, and
+    ``start_step``, ``recovery`` (the ``RecoveryLog``'s events) and the
+    last save's ``ckpt`` figures (snapshot and write seconds, bytes) and a
+    resume's ``restore_s``."""
+    if (ckpt_every or resume) and ckpt_dir is None:
+        raise ValueError("ckpt_every and resume need ckpt_dir")
+    if ckpt_dir is not None and not (ckpt_every or resume):
+        raise ValueError("ckpt_dir without ckpt_every or resume: nothing "
+                         "would be saved or restored")
     cfg = model.cfg if model is not None else \
         get_model_config(arch, smoke=smoke)
     if cfg.name != get_model_config(arch).name:
@@ -91,18 +122,33 @@ def train(
     model.requires_grad_(True)
     opt_cfg = opt_cfg or OptimizerConfig(warmup_steps=max(2, steps // 10),
                                          total_steps=max(steps, 10))
-    opt_state = init_opt_state(opt_cfg,
-                               dict(model.params.named_parameters()))
-    step_fn = make_train_step(model, opt_cfg, backend=backend)
+    params = dict(model.params.named_parameters())
+    step_fn = make_train_step(model, opt_cfg, backend=backend, mesh=mesh)
+    zero = step_fn.zero
+    opt_state = init_opt_state(opt_cfg, params, zero)
+    rank = dist.get_rank() if mesh is not None else 0
+
+    mgr = CheckpointManager(ckpt_dir, keep=3, write=rank == 0) \
+        if ckpt_dir else None
+    start_step = 0
+    log = {"step_s": [], "loss": [], "lr": [], "grad_norm": []}
+    if mgr and resume and mgr.latest_step() is not None:
+        s = mgr.latest_step()
+        t = time.perf_counter()
+        _, meta = mgr.restore(
+            s, convert.train_state_tree(params, opt_state, cfg),
+            placement_fn=_zero_placement(params, zero, cfg))
+        log["restore_s"] = time.perf_counter() - t
+        start_step = int(meta.get("next_step", s))
 
     source = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq_len,
                          global_batch=global_batch, seed=seed)
-    prefetch = Prefetcher(source, start_step=0, max_steps=steps)
+    prefetch = Prefetcher(source, start_step=start_step, max_steps=steps)
     agent = CoordinationAgent(pacing or PacingConfig())
+    recovery = RecoveryLog()
     losses = []
-    log = {"step_s": [], "loss": [], "lr": [], "grad_norm": []}
     try:
-        for step in range(steps):
+        for step in range(start_step, steps):
             np_batch = agent.timed_data(prefetch.next)
             batch = {k: torch.from_numpy(v).to(dev)
                      for k, v in np_batch.items()}
@@ -128,12 +174,60 @@ def train(
                       f"lr {log['lr'][-1]:.2e} "
                       f"gnorm {log['grad_norm'][-1]:.2f} "
                       f"t {rec.total_time*1e3:.0f}ms")
+            if mgr and ckpt_every and (step + 1) % ckpt_every == 0:
+                mgr.save(step + 1, _save_tree(params, opt_state, zero, cfg),
+                         metadata={"next_step": step + 1, "arch": arch})
+                if mesh is not None:
+                    dist.barrier()
+                    mesh_lib.count("barrier")
+                recovery.record("resume", step + 1, "checkpoint saved")
+        if mgr:
+            mgr.wait()
+            if mesh is not None:
+                dist.barrier()
+                mesh_lib.count("barrier")
     finally:
         prefetch.close()
     if stats is not None:
-        stats.update(log)
+        stats.update(log, start_step=start_step,
+                     recovery=[dataclasses.asdict(e)
+                               for e in recovery.events],
+                     ckpt=dict(mgr.last_save) if mgr else {})
     return TrainResult(steps=steps, losses=losses, summary=agent.summary(),
                        final_loss=losses[-1] if losses else float("nan"))
+
+
+def _save_tree(params, opt_state, zero, cfg):
+    """The tree a checkpoint saves: under ZeRO-1 each sharded moment is
+    gathered whole when the snapshot reaches it (every rank joins)."""
+    if zero is None:
+        return convert.train_state_tree(params, opt_state, cfg)
+    whole = lambda tree: {n: (lambda n=n, t=t: zero.gather(n, t))
+                          for n, t in tree.items()}
+    return convert.train_state_tree(
+        params, opt_state._replace(mu=whole(opt_state.mu),
+                                   nu=whole(opt_state.nu)), cfg)
+
+
+def _zero_placement(params, zero, cfg):
+    """``placement_fn`` for a restore under ZeRO-1: a moment's whole host
+    leaf is cut to this rank's slice; everything else is kept whole."""
+    if zero is None:
+        return None
+    names = {}
+    tree = convert.reference_tree({n: n for n in params}, cfg)
+    for path, leaf in _flatten_with_paths(tree):
+        for which in (1, 2):                      # mu, nu
+            if isinstance(leaf, Stacked):
+                names.update({f"/1/{which}{path}[{t}]": n
+                              for t, n in enumerate(leaf)})
+            else:
+                names[f"/1/{which}{path}"] = leaf
+
+    def place(path, host):
+        n = names.get(path)
+        return host if n is None else zero.shard(n, host)
+    return place
 
 
 def main() -> None:
@@ -151,11 +245,24 @@ def main() -> None:
                     help="default: the card (raises without one)")
     ap.add_argument("--backend", default="cuda", choices=("cuda", "torch"))
     args = ap.parse_args()
-    res = train(arch=args.arch, smoke=args.smoke, steps=args.steps,
-                seq_len=args.seq_len, global_batch=args.global_batch,
-                ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                resume=args.resume, device=args.device,
-                backend=args.backend)
+    mesh, device = None, args.device
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:     # started by torchrun
+        cpu = device == "cpu"
+        if not cpu:
+            local = int(os.environ.get("LOCAL_RANK", "0"))
+            torch.cuda.set_device(local)
+            device = f"cuda:{local}"
+        dist.init_process_group("gloo" if cpu else "nccl")
+        mesh = mesh_lib.make_local_mesh(device_type="cpu" if cpu else "cuda")
+    try:
+        res = train(arch=args.arch, smoke=args.smoke, steps=args.steps,
+                    seq_len=args.seq_len, global_batch=args.global_batch,
+                    ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                    resume=args.resume, mesh=mesh, device=device,
+                    backend=args.backend)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
     print(json.dumps({"final_loss": res.final_loss,
                       "summary": res.summary}, indent=1, default=str))
 

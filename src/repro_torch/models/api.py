@@ -3,7 +3,7 @@ assembly, on an explicit device.
 
 The counterpart of ``repro.models.api.Model``: ``init`` /
 ``init_cache`` / ``forward`` / ``loss`` / ``encode`` / ``prefill`` /
-``decode_step``.
+``decode_step``, and ``param_spec``.
 ``encode`` is the encoder-decoder's encoder (the reference's
 ``transformer.encode``, which its ``generate`` calls directly). The
 reference's ``Model`` is a stateless facade whose methods take the
@@ -46,6 +46,11 @@ class Model(nn.Module):
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.params = tfm.init_params(self.cfg, gen, device=self.device)
         return self.params
+
+    def param_spec(self) -> Dict[str, Tuple]:
+        """Each parameter's resolved spec under the bound axis rules
+        (:func:`repro_torch.models.transformer.param_spec`)."""
+        return tfm.param_spec(dict(self._p().named_parameters()), self.cfg)
 
     def init_cache(self, batch: int, max_len: int) -> tfm.Cache:
         return tfm.init_cache(self.cfg, batch, max_len, device=self.device)

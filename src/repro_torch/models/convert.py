@@ -27,6 +27,7 @@ from typing import Any, Dict, Iterator, Tuple
 import numpy as np
 import torch
 
+from repro_torch.ckpt.checkpoint import Stacked
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.api import Model
@@ -85,6 +86,58 @@ def jax_path(name: str, cfg: ModelConfig) -> Tuple[str, bool]:
     if parts[0] == "enc_blocks":
         return f"/enc_body/0/{'/'.join(parts[2:])}", True
     return "/" + "/".join(parts), False
+
+
+def reference_tree(named: Dict[str, Any], cfg: ModelConfig) -> Dict:
+    """The reference's tree (nested dicts, and lists where the reference
+    has lists) holding the values of ``named`` (by the port's parameter
+    names): an unstacked leaf is its value, a stacked one a ``Stacked`` of
+    its layers' values in period order. Raises ``ValueError`` if a
+    stacked leaf misses a period."""
+    root: Dict[str, Any] = {}
+    layers: Dict[str, Dict[int, Any]] = {}
+    prefix, kinds, _ = tfm.layer_layout(cfg)
+    for n, v in named.items():
+        path, stacked = jax_path(n, cfg)
+        if stacked:
+            i = int(n.split(".")[1])
+            t = i if n.startswith("enc_blocks.") else (i - prefix) // len(kinds)
+            layers.setdefault(path, {})[t] = v
+        else:
+            _insert(root, path, v)
+    for path, by_t in layers.items():
+        if sorted(by_t) != list(range(len(by_t))):
+            raise ValueError(f"{path}: periods {sorted(by_t)}")
+        _insert(root, path, Stacked(by_t[t] for t in range(len(by_t))))
+    return _listify(root)
+
+
+def train_state_tree(named: Dict[str, Any], opt_state, cfg: ModelConfig):
+    """``(params, (step, mu, nu))`` in the reference's layout: what
+    ``launch.train`` saves and restores (the reference's tree of
+    ``(params, OptState)``)."""
+    return (reference_tree(named, cfg),
+            (opt_state.step, reference_tree(opt_state.mu, cfg),
+             reference_tree(opt_state.nu, cfg)))
+
+
+def _insert(root: Dict, path: str, value) -> None:
+    *parents, leaf = path.strip("/").split("/")
+    node = root
+    for k in parents:
+        node = node.setdefault(k, {})
+    node[leaf] = value
+
+
+def _listify(node):
+    """Dicts keyed 0..n-1 become lists, as the reference's are."""
+    if not isinstance(node, dict):
+        return node
+    out = {k: _listify(v) for k, v in node.items()}
+    if out and all(k.isdigit() for k in out) and \
+            sorted(map(int, out)) == list(range(len(out))):
+        return [out[str(i)] for i in range(len(out))]
+    return out
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,

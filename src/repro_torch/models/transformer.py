@@ -764,3 +764,99 @@ def decode_step(
     out = forward(p, batch, cfg=cfg, mode="decode", cache=cache, pos0=pos,
                   backend=backend)
     return out.logits[:, 0], out.cache
+
+
+# ---------------------------------------------------------------------------
+# parameter sharding specs (path-based logical rules)
+# ---------------------------------------------------------------------------
+
+# leaf name -> logical spec for the *trailing* dims (leading stack dims pad
+# with None). Names not listed replicate.
+_SPEC_BY_NAME: Dict[str, Tuple] = {
+    # embeddings / head
+    "embed": ("vocab", "embed"),
+    "lm_head": ("embed", "vocab"),
+    "pos_embed": (None, "embed"),
+    # attention
+    "wq": ("embed", "heads"),
+    "wk": ("embed", "heads"),
+    "wv": ("embed", "heads"),
+    "wo": ("heads", "embed"),
+    "bq": ("heads",),
+    "bk": ("heads",),
+    "bv": ("heads",),
+    # mla
+    "wq_a": ("embed", None),
+    "wq_b": (None, "heads"),
+    "wkv_a": ("embed", None),
+    "wkv_b": (None, "heads"),
+    # mlp
+    "w_gate": ("embed", "ff"),
+    "w_up": ("embed", "ff"),
+    "w_down": ("ff", "embed"),
+    "b_up": ("ff",),
+    # rwkv
+    "wr": ("embed", "heads"),
+    "wg": ("embed", "heads"),
+    "lora_a": ("embed", None),
+    "decay_a": ("embed", None),
+    # mamba
+    "in_proj": ("embed", "ff"),
+    "x_proj": ("ff", None),
+    "dt_proj": (None, "ff"),
+    "out_proj": ("ff", "embed"),
+    "conv_w": (None, "ff"),
+    "conv_b": ("ff",),
+    "A_log": ("ff", None),
+    "D": ("ff",),
+    # mtp
+    "proj": (None, "embed"),
+}
+
+# MoE expert stacks are 3-D (E, d_in, d_out): ff dim sharded over model.
+_MOE_3D = {"w_gate": (None, None, "ff"), "w_up": (None, None, "ff"),
+           "w_down": (None, "ff", None)}
+
+
+def _leaf_logical_spec(path: str, ndim: int, moe_paths=frozenset()
+                       ) -> Tuple:
+    """The reference's logical spec of its leaf ``path`` of rank ``ndim``;
+    ``moe_paths`` are the MoE mlp dicts (those with a ``router`` leaf),
+    whose ``w_gate`` / ``w_up`` / ``w_down`` are expert stacks."""
+    name = path.split("/")[-1]
+    spec: Optional[Tuple] = None
+    if name in ("w_gate", "w_up", "w_down"):
+        # distinguish dense MLP (2-D trailing) from expert stacks (3-D)
+        expert = any(path.startswith(m) for m in moe_paths)
+        spec = _MOE_3D[name] if (ndim >= 3 and expert) \
+            else _SPEC_BY_NAME[name]
+    elif name in _SPEC_BY_NAME:
+        spec = _SPEC_BY_NAME[name]
+    if spec is None:
+        return (None,) * ndim
+    pad = ndim - len(spec)
+    if pad < 0:                      # leaf smaller than spec (shouldn't happen)
+        return (None,) * ndim
+    return (None,) * pad + tuple(spec)
+
+
+def param_spec(params: Dict[str, torch.Tensor], cfg: ModelConfig
+               ) -> Dict[str, Tuple]:
+    """Each parameter's resolved spec under the bound axis rules
+    (``launch.sharding.axis_rules``), by the reference's rule on its own
+    leaf (``convert.jax_path``): the logical spec of the leaf at its rank
+    there, the leading period entry of a stacked leaf dropped (it is
+    ``None``), then resolved on the port's per-layer shape. The MoE expert
+    stacks are the ``w_gate`` / ``w_up`` / ``w_down`` of an mlp with a
+    ``router``, as in the reference."""
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models.convert import jax_path
+    paths = {n: jax_path(n, cfg) for n in params}
+    moe_paths = frozenset(path[:-len("router")] for path, _ in paths.values()
+                          if path.endswith("/router"))
+    out = {}
+    for n, p in params.items():
+        path, stacked = paths[n]
+        spec = _leaf_logical_spec(path, p.dim() + stacked, moe_paths)
+        out[n] = shd.resolve_spec(p.shape, spec[int(stacked):])
+    return out

@@ -18,19 +18,33 @@ Where the reference returns new trees, :func:`adamw_update` writes the
 parameters and the moments in place, under ``torch.no_grad()``, a leaf at
 a time and a slice of at most :data:`CHUNK` elements at a time: one
 float32 copy of every parameter at once would not fit beside a 7B
-model's state on one card. The ZeRO-1 sharding of the moments
-(``opt_state_spec``) and the int8 gradient compression
-(``optim/compress.py``) wait for the mesh (``ROADMAP.md`` Queue 1 items
-10b and 11).
+model's state on one card.
+
+ZeRO-1 (``cfg.zero1`` under a mesh): :func:`opt_state_spec` follows the
+reference's rule (the moments shard the first unsharded dim that the
+``pod x data`` size divides and that is larger than 1), and
+:func:`zero1_layout` turns it into a :class:`Zero1`: each rank keeps
+``mu`` and ``nu`` for its slice of that dim only, updates its slice of
+the parameter from the reduced gradient (which every rank holds whole),
+and the slices are all-gathered into the parameter. The global norm for
+clipping is taken over the whole reduced gradients, and the update is
+elementwise, so ZeRO-1 on and off give the same bits. The port's
+per-layer leaves have no period axis, so the dim a stacked leaf shards
+may differ from the reference's choice on it (which may be the period
+axis); the bits do not.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, OptimizerConfig
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import sharding as shd
 from repro_torch.models.convert import jax_path
 
 Tree = Dict[str, torch.Tensor]
@@ -62,12 +76,100 @@ def cosine_lr(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cfg.lr * cos)
 
 
-def init_opt_state(cfg: OptimizerConfig, params: Tree) -> OptState:
+@dataclasses.dataclass(frozen=True)
+class Zero1:
+    """The moments' ZeRO-1 layout on this rank: each leaf's sharded dim
+    (``None``: the leaf is kept whole), this rank's index among the
+    ``size`` ranks of ``pod x data`` and their process group."""
+    dims: Dict[str, Optional[int]]
+    index: int
+    size: int
+    group: Any
+
+    def shard(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the whole leaf ``t`` (a view)."""
+        d = self.dims[name]
+        if d is None:
+            return t
+        k = t.shape[d] // self.size
+        return t.narrow(d, self.index * k, k)
+
+    def gather(self, name: str, part: torch.Tensor) -> torch.Tensor:
+        """The whole leaf from every rank's slice (an all-gather)."""
+        d = self.dims[name]
+        if d is None:
+            return part
+        part = part.contiguous()
+        parts = [torch.empty_like(part) for _ in range(self.size)]
+        dist.all_gather(parts, part, group=self.group)
+        mesh_lib.count("all_gather")
+        return torch.cat(parts, dim=d)
+
+
+def opt_state_spec(cfg: OptimizerConfig, params: Tree,
+                   pspec: Dict[str, tuple]) -> OptState:
+    """Spec tree for the optimizer state under the bound axis rules.
+
+    With ``zero1``, moments additionally shard the first dim that is
+    unsharded, larger than 1 and divisible by the ``pod x data`` size over
+    those axes; otherwise they mirror the parameter specs."""
+    def zspec(leaf, spec):
+        if not cfg.zero1:
+            return spec
+        mesh = shd.active_mesh()
+        if mesh is None:
+            return spec
+        ddp_axes = mesh_lib.batch_axes(mesh)
+        if not ddp_axes:
+            return spec
+        shape = mesh_lib.mesh_shape(mesh)
+        ddp = 1
+        for a in ddp_axes:
+            ddp *= shape[a]
+        entries = list(spec) + [None] * (len(leaf.shape) - len(spec))
+        # shard the first dim that is unsharded and divisible by ddp
+        for i, e in enumerate(entries):
+            if e is None and leaf.shape[i] % ddp == 0 and leaf.shape[i] > 1:
+                entries[i] = ddp_axes if len(ddp_axes) > 1 else ddp_axes[0]
+                return tuple(entries)
+        return spec
+
+    mspec = {n: zspec(p, pspec[n]) for n, p in params.items()}
+    return OptState(step=(), mu=mspec, nu=dict(mspec))
+
+
+def zero1_layout(cfg: OptimizerConfig, params: Tree, model_cfg: ModelConfig,
+                 mesh) -> Optional[Zero1]:
+    """The :class:`Zero1` layout of ``params`` on ``mesh`` (``None`` when
+    ``cfg.zero1`` is off): the dim :func:`opt_state_spec` shards for each
+    leaf, under the mesh's rules."""
+    if not cfg.zero1:
+        return None
+    from repro_torch.models.transformer import param_spec
+    with shd.axis_rules(mesh):
+        pspec = param_spec(params, model_cfg)
+        ospec = opt_state_spec(cfg, params, pspec)
+    dims = {}
+    for n, p in params.items():
+        before = list(pspec[n]) + [None] * (p.dim() - len(pspec[n]))
+        after = list(ospec.mu[n]) + [None] * (p.dim() - len(ospec.mu[n]))
+        dims[n] = next((i for i, (a, b) in enumerate(zip(before, after))
+                        if a != b), None)
+    axes = mesh_lib.batch_axes(mesh)
+    return Zero1(dims=dims, index=mesh_lib.coordinate(mesh, axes),
+                 size=mesh_lib.dp_size(mesh),
+                 group=mesh_lib.axes_group(mesh, axes))
+
+
+def init_opt_state(cfg: OptimizerConfig, params: Tree,
+                   zero: Optional[Zero1] = None) -> OptState:
     """Zero moments in ``cfg.state_dtype``, step 0, on the parameters'
-    device."""
+    device; under ``zero`` only this rank's slice of each moment."""
     dt = getattr(torch, cfg.state_dtype)
     dev = next(iter(params.values())).device
-    zeros = lambda: {n: torch.zeros(p.shape, dtype=dt, device=p.device)
+    shape = (lambda n, p: p.shape) if zero is None else \
+        (lambda n, p: zero.shard(n, p).shape)
+    zeros = lambda: {n: torch.zeros(shape(n, p), dtype=dt, device=p.device)
                      for n, p in params.items()}
     return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
                     mu=zeros(), nu=zeros())
@@ -119,13 +221,16 @@ def decay_mask(cfg: ModelConfig, params: Tree) -> Dict[str, float]:
 
 @torch.no_grad()
 def adamw_update(cfg: OptimizerConfig, params: Tree, grads: Tree,
-                 state: OptState, decay: Dict[str, float]
+                 state: OptState, decay: Dict[str, float],
+                 zero: Optional[Zero1] = None
                  ) -> Tuple[Tree, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step, in place: the gradients clipped by their global
     norm, the step counted, ``cosine_lr`` at the new step, the bias
     corrections, then each leaf's moments and parameter written where
-    they are. ``decay`` is :func:`decay_mask`'s. Returns (params, the new
-    state, {"grad_norm", "lr"})."""
+    they are. ``decay`` is :func:`decay_mask`'s. Under ``zero`` (the
+    moments' ZeRO-1 layout) a sharded leaf's slice is updated and the
+    slices gathered into the parameter. Returns (params, the new state,
+    {"grad_norm", "lr"})."""
     gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, cfg.grad_clip)
     step = state.step + 1
@@ -137,19 +242,30 @@ def adamw_update(cfg: OptimizerConfig, params: Tree, grads: Tree,
     for n, p in params.items():
         g, m, v = grads[n], state.mu[n], state.nu[n]
         wd = cfg.weight_decay * decay[n]
-        # views of p, m and v (written through); g is only read
-        pieces = zip(*(t.view(-1).split(CHUNK) for t in (p, m, v)),
-                     g.reshape(-1).split(CHUNK))
-        for pc, mc, vc, gc in pieces:
-            g32 = _clipped(gc, scale).float()
-            m_new = b1 * mc.float() + (1 - b1) * g32
-            v_new = b2 * vc.float() + (1 - b2) * torch.square(g32)
-            del g32
-            delta = (m_new / c1) / (torch.sqrt(v_new / c2) + cfg.eps)
-            p32 = pc.float()
-            delta += wd * p32
-            pc.copy_(p32 - lr * delta)
-            mc.copy_(m_new.to(sdt))
-            vc.copy_(v_new.to(sdt))
+        if zero is not None and zero.dims[n] is not None:
+            part = zero.shard(n, p).contiguous()
+            _update_leaf(part, zero.shard(n, g), m, v, scale, lr, c1, c2,
+                         wd, cfg, sdt)
+            p.copy_(zero.gather(n, part))
+        else:
+            _update_leaf(p, g, m, v, scale, lr, c1, c2, wd, cfg, sdt)
     return params, OptState(step, state.mu, state.nu), \
         {"grad_norm": gnorm, "lr": lr}
+
+
+def _update_leaf(p, g, m, v, scale, lr, c1, c2, wd, cfg, sdt) -> None:
+    b1, b2 = cfg.b1, cfg.b2
+    # views of p, m and v (written through); g is only read
+    pieces = zip(*(t.view(-1).split(CHUNK) for t in (p, m, v)),
+                 g.reshape(-1).split(CHUNK))
+    for pc, mc, vc, gc in pieces:
+        g32 = _clipped(gc, scale).float()
+        m_new = b1 * mc.float() + (1 - b1) * g32
+        v_new = b2 * vc.float() + (1 - b2) * torch.square(g32)
+        del g32
+        delta = (m_new / c1) / (torch.sqrt(v_new / c2) + cfg.eps)
+        p32 = pc.float()
+        delta += wd * p32
+        pc.copy_(p32 - lr * delta)
+        mc.copy_(m_new.to(sdt))
+        vc.copy_(v_new.to(sdt))

@@ -953,3 +953,95 @@ def test_torch_cuda_smoke_train_matches_torch_backend(card):
             want = SMOKE.expected_train_launches(cfg)
             assert MK.launch_counts() == {k: 2 * v for k, v in want.items()}
     np.testing.assert_allclose(losses["cuda"], losses["torch"], rtol=1e-5)
+
+
+def test_torch_cuda_checkpoint_round_trip_of_card_tensors(card, tmp_path):
+    """CUDA leaves (bf16, float32, int32, a stacked pair) snapshot into
+    pinned host memory, are isolated from later in-place writes, and
+    restore in place on the card bit for bit."""
+    from repro_torch.ckpt import CheckpointManager, Stacked
+    g = torch.Generator(device=card).manual_seed(0)
+    tree = {"w": torch.randn(33, 7, generator=g, device=card).to(
+                torch.bfloat16),
+            "s": Stacked([torch.randn(5, generator=g, device=card)
+                          for _ in range(2)]),
+            "n": torch.full((), 7, dtype=torch.int32, device=card)}
+    want = {"w": tree["w"].clone(), "s": [t.clone() for t in tree["s"]],
+            "n": tree["n"].clone()}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, tree)
+    tree["w"].add_(1)
+    for t in tree["s"]:
+        t.add_(1)
+    mgr.wait()
+    got, _ = mgr.restore(1, tree)
+    assert got["w"] is tree["w"] and got["w"].is_cuda
+    assert torch.equal(tree["w"], want["w"])
+    assert all(torch.equal(a, b) for a, b in zip(tree["s"], want["s"]))
+    assert torch.equal(tree["n"], want["n"])
+    assert mgr.last_save["bytes"] == 33 * 7 * 2 + 2 * 5 * 4 + 4
+
+
+def test_torch_cuda_smoke_train_resume_is_bit_identical(card, tmp_path):
+    """On the card, through the kernels: 3 steps, a save and a resume to 6
+    against 6 straight, the smoke Qwen2 in bf16; bit for bit where two
+    straight runs agree bit for bit."""
+    from repro_torch.configs import OptimizerConfig, get_model_config
+    from repro_torch.launch.train import train
+    from repro_torch.models.api import build_model
+    cfg = get_model_config("qwen2-7b", smoke=True)
+    ocfg = OptimizerConfig(warmup_steps=2, total_steps=10)
+
+    def run(steps, **kw):
+        m = build_model(cfg)
+        m.init(0)
+        res = train(arch="qwen2-7b", model=m, steps=steps, seq_len=64,
+                    global_batch=2, log_every=0, opt_cfg=ocfg, **kw)
+        return m, res.losses
+
+    a, la = run(6)
+    a2, la2 = run(6)
+    _, lb = run(3, ckpt_dir=str(tmp_path), ckpt_every=3)
+    c, lc = run(6, ckpt_dir=str(tmp_path), resume=True)
+    same = la == la2 and all(torch.equal(p, q) for p, q in zip(
+        a.params.parameters(), a2.params.parameters()))
+    if same:
+        assert lb + lc == la
+        assert all(torch.equal(p, q) for p, q in zip(
+            a.params.parameters(), c.params.parameters()))
+    else:
+        np.testing.assert_allclose(lb + lc, la, rtol=1e-2)
+
+
+def test_torch_cuda_world1_nccl_mesh_step_is_the_plain_step(card, tmp_path):
+    """An NCCL group of world size 1 and a (data 1, model 1) mesh, ZeRO-1
+    on: three steps of train(mesh=) give the bits of three steps with no
+    mesh."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.configs import OptimizerConfig, get_model_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.train import train
+    from repro_torch.models.api import build_model
+    cfg = get_model_config("qwen2-7b", smoke=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = mesh_lib.make_local_mesh()
+        out = []
+        for m in (None, mesh):
+            model = build_model(cfg)
+            model.init(0)
+            res = train(arch="qwen2-7b", model=model, steps=3, seq_len=64,
+                        global_batch=2, log_every=0, mesh=m,
+                        opt_cfg=OptimizerConfig(warmup_steps=1,
+                                                total_steps=4))
+            out.append((model, res.losses))
+        assert out[0][1] == out[1][1]
+        assert all(torch.equal(p, q) for p, q in zip(
+            out[0][0].params.parameters(), out[1][0].params.parameters()))
+    finally:
+        dist.destroy_process_group()

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports ``torch`` and ``numpy``, never ``jax``
-and nothing of the JAX package ``repro``; its entry points run on the card
+"""The port stands alone: it imports ``torch`` and ``numpy``, never ``jax``,
+nothing of the JAX package ``repro`` and not ``ml_dtypes`` (which comes
+with JAX); its entry points run on the card
 unless the caller asks for the CPU by name."""
 import pathlib
 import re
@@ -15,7 +16,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)"
-    r"|from\s+repro(\.|\s))", re.M)
+    r"|from\s+repro(\.|\s)|import\s+ml_dtypes\b|from\s+ml_dtypes\b)",
+    re.M)
 
 
 def test_torch_port_has_the_expected_files():
@@ -54,6 +56,11 @@ def test_torch_port_has_the_expected_files():
                  "src/repro_torch/launch/steps.py",
                  "src/repro_torch/launch/serve.py",
                  "src/repro_torch/launch/train.py",
+                 "src/repro_torch/launch/mesh.py",
+                 "src/repro_torch/launch/sharding.py",
+                 "src/repro_torch/launch/compressed.py",
+                 "src/repro_torch/ckpt/checkpoint.py",
+                 "src/repro_torch/optim/compress.py",
                  "src/repro_torch/optim/__init__.py",
                  "src/repro_torch/optim/adamw.py",
                  "src/repro_torch/data/__init__.py",

@@ -542,7 +542,12 @@ def test_torch_train_loss_decreases():
 @pytest.mark.parametrize("kw", [dict(ckpt_dir="ck"), dict(ckpt_every=5),
                                 dict(resume=True)], ids=str)
 def test_torch_train_refuses_checkpointing(kw):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    """Checkpointing is ported (``tests/test_torch_checkpoint.py``); what
+    is refused is a half-given checkpoint: ``ckpt_every`` or ``resume``
+    without ``ckpt_dir``, and a ``ckpt_dir`` with neither, which would
+    save and restore nothing."""
+    match = "nothing would be saved" if "ckpt_dir" in kw else "need ckpt_dir"
+    with pytest.raises(ValueError, match=match):
         ttrain.train(arch="qwen2-7b", steps=1, device="cpu",
                      backend="torch", **kw)
 

@@ -35,8 +35,8 @@ rename (the reference syncs the manifest only).
 returns new tensors on ``device`` where ``like`` holds no tensor.
 ``placement_fn(path, host)`` stands where the reference's ``sharding_fn``
 does: it returns the part of the full host leaf that this rank keeps
-under the current mesh (a ZeRO-1 shard), so a checkpoint written at one
-world size restores at another. For a :class:`Stacked` leaf it is called
+under the current mesh (a ZeRO-1 slice, a tensor-parallel shard), so a
+checkpoint written at one ``(data, model)`` restores at another. For a :class:`Stacked` leaf it is called
 per layer, with ``path[t]``. A leaf of the file with no place in ``like``,
 a place with no leaf, or a shape or dtype that differs raises
 ``ValueError``.

@@ -17,7 +17,12 @@ between the pods' parameters after its update as
 ``metrics["pod_divergence"]``. The ring's true wire bytes are in
 ``optim.compress``'s docstring (1.97x fewer than bf16 at ``pod = 2``, not
 3.9x). ``lower_compressed_train_step`` (AOT lowering) comes with the
-dry-run (``ROADMAP.md`` Queue 1 item 12).
+dry-run (``ROADMAP.md`` Queue 1 item 12). As the reference's step binds
+``pod`` manual around its loss, the port's marks it manual
+(``launch.sharding.manual``): a layer that averages over the batch axes
+(the MoE's aux loss, on a model built on the mesh) leaves ``pod`` to the
+step. A mesh whose ``model`` axis is larger than 1 is refused: the ring
+under tensor parallelism is not ported.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import OptimizerConfig
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import sharding as shd
 from repro_torch.launch.steps import _grads, _local
 from repro_torch.models.api import Model
 from repro_torch.optim import adamw_update, decay_mask
@@ -41,7 +47,7 @@ def make_compressed_train_step(model: Model, opt_cfg: OptimizerConfig,
     the model's parameters in place. Requires ``pod > 1``. Build the state
     with ``init_opt_state(cfg, params)`` (no ZeRO-1)."""
     shape = mesh_lib.mesh_shape(mesh)
-    mesh_lib.require_data_parallel(mesh)
+    mesh_lib.refuse_model_axis(mesh, "the compressed step")
     if shape.get("pod", 1) <= 1:
         raise ValueError(f"the compressed step targets a multi-pod mesh; "
                          f"this mesh is {shape}")
@@ -56,8 +62,9 @@ def make_compressed_train_step(model: Model, opt_cfg: OptimizerConfig,
     pod_group = mesh_lib.axes_group(mesh, ("pod",))
 
     def step(opt_state, batch):
-        grads, metrics = _grads(model, params, _local(batch, dp, idx),
-                                backend)
+        with shd.manual(("pod",)):
+            grads, metrics = _grads(model, params, _local(batch, dp, idx),
+                                    backend)
         # the pod's gradient (its data-axis mean), then the int8 pod ring
         grads = hierarchical_grad_reduce(grads, mesh=mesh)
         _, opt_state, om = adamw_update(opt_cfg, params, grads, opt_state,

@@ -14,17 +14,28 @@ Axes:
     fabric tier from the paper's study, and the axis the int8 gradient
     ring targets.
 
-The port runs data parallelism only: a mesh whose ``model`` axis is
-larger than 1 is refused by the step factories
-(:func:`require_data_parallel`). Meshes are made on ``"cuda"`` unless the
-caller names ``"cpu"``. :func:`collective_counts` counts the collectives
-the port issues (by kind), for the launch counts a step reports.
+A ``model`` axis larger than 1 is tensor parallelism; which layer kinds
+have a tensor-parallel path is the models' to say
+(``models.transformer.require_supported``), and :func:`refuse_model_axis`
+refuses such a mesh where nothing runs on it yet. Meshes are made on
+``"cuda"`` unless the caller names ``"cpu"``. :func:`axes_group` gives the
+process group over any subset of the axes. :func:`all_reduce` and
+:func:`all_gather` are the collectives the port's layers, gradient
+reduction and ZeRO-1 issue; :func:`collective_counts` counts every
+collective the port issues (by kind), for the launch counts a step
+reports, and :func:`time_collectives` turns on a timer of the host's
+time inside :func:`all_reduce` and :func:`all_gather`
+(:func:`collective_seconds`), off by default: each timed call first waits
+for the device, so a timed step is slower than an untimed one.
 """
 from __future__ import annotations
 
+import itertools
+import time
 from collections import Counter
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import MeshConfig
@@ -33,10 +44,44 @@ TP_ITEM = ("ROADMAP.md Queue 1 item 11, its tensor-parallel half (a "
            "'model' axis larger than 1)")
 
 _COUNTS: Counter = Counter()
+_TIMER = {"on": False, "s": 0.0}
 
 
 def count(kind: str, n: int = 1) -> None:
     _COUNTS[kind] += n
+
+
+def time_collectives(on: bool) -> None:
+    """Turn the collectives' timer on or off (and zero it when turned
+    on): a timed :func:`all_reduce` or :func:`all_gather` adds the host's
+    time inside it to :func:`collective_seconds`, the device synchronised
+    before and after it for a CUDA tensor."""
+    _TIMER["on"] = on
+    if on:
+        _TIMER["s"] = 0.0
+
+
+def collective_seconds() -> float:
+    """The host's seconds inside the collectives timed since
+    :func:`time_collectives` turned the timer on."""
+    return _TIMER["s"]
+
+
+class _Timed:
+    def __init__(self, x: torch.Tensor):
+        self.on, self.cuda = _TIMER["on"], x.is_cuda
+
+    def __enter__(self):
+        if self.on:
+            if self.cuda:
+                torch.cuda.synchronize()
+            self.t = time.perf_counter()
+
+    def __exit__(self, *exc):
+        if self.on:
+            if self.cuda:
+                torch.cuda.synchronize()
+            _TIMER["s"] += time.perf_counter() - self.t
 
 
 def collective_counts() -> Dict[str, int]:
@@ -86,6 +131,24 @@ def make_local_mesh(model_parallel: Optional[int] = None, *,
     return _init_device_mesh((n // mp, mp), ("data", "model"), device_type)
 
 
+def mesh_from_torchrun(device, model_parallel: int = 1):
+    """Under ``torchrun`` (``WORLD_SIZE`` above 1): start the process
+    group (gloo for ``device="cpu"``, else NCCL on ``LOCAL_RANK``'s card)
+    and return (a ``(data, model_parallel)`` mesh of the ranks, the
+    device); otherwise (``None``, ``device``)."""
+    import os
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return None, device
+    cpu = device == "cpu"
+    if not cpu:
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        torch.cuda.set_device(local)
+        device = f"cuda:{local}"
+    dist.init_process_group("gloo" if cpu else "nccl")
+    return make_local_mesh(model_parallel,
+                           device_type="cpu" if cpu else "cuda"), device
+
+
 def mesh_shape(mesh) -> Dict[str, int]:
     """The mesh's axis sizes by name, in mesh order. Takes a
     ``DeviceMesh`` or anything with an ordered ``shape`` mapping (a
@@ -113,12 +176,17 @@ def dp_size(mesh) -> int:
     return n
 
 
-def require_data_parallel(mesh) -> None:
-    """Raise ``NotImplementedError`` for a ``model`` axis larger than 1."""
-    if mesh_shape(mesh).get("model", 1) > 1:
+def model_size(mesh) -> int:
+    return mesh_shape(mesh).get("model", 1)
+
+
+def refuse_model_axis(mesh, what: str) -> None:
+    """Raise ``NotImplementedError`` for ``what`` on a mesh whose ``model``
+    axis is larger than 1."""
+    if model_size(mesh) > 1:
         raise NotImplementedError(
-            f"a mesh whose 'model' axis is {mesh_shape(mesh)['model']}: the "
-            f"port runs data parallelism only until {TP_ITEM} is ported")
+            f"{what} on a mesh whose 'model' axis is {model_size(mesh)}: "
+            f"not ported ({TP_ITEM})")
 
 
 def coordinate(mesh, axes: Sequence[str]) -> int:
@@ -134,10 +202,14 @@ def coordinate(mesh, axes: Sequence[str]) -> int:
 
 
 def axes_group(mesh, axes: Sequence[str]):
-    """The process group over ``axes`` of the mesh: one axis's group, or,
-    for several axes when every other axis has size 1, the whole world
-    (whose rank order is then the flat index over ``axes``)."""
-    axes = tuple(axes)
+    """The process group over ``axes`` of the mesh: the ranks that share
+    this rank's coordinates on every other axis, numbered as
+    :func:`coordinate` numbers them. One axis's group is the mesh's own;
+    for several axes, the whole world when every other axis has size 1,
+    else one ``dist.new_group`` per set of ranks sharing the other axes'
+    coordinates, made on every rank in the same order (the first call
+    for these axes must be made on every rank) and kept on the mesh."""
+    axes = tuple(a for a in mesh_shape(mesh) if a in tuple(axes))
     if len(axes) == 1:
         return mesh.get_group(axes[0])
     shape = mesh_shape(mesh)
@@ -145,6 +217,39 @@ def axes_group(mesh, axes: Sequence[str]):
     if all(shape[a] == 1 for a in shape if a not in axes) and \
             ranks == list(range(dist.get_world_size())):
         return dist.group.WORLD
-    raise NotImplementedError(
-        f"a process group over {axes} of a mesh {shape}: the port builds "
-        f"one only when the other axes have size 1 ({TP_ITEM})")
+    cache = mesh.__dict__.setdefault("_repro_groups", {})
+    if axes not in cache:
+        names = list(shape)
+        grid = mesh.mesh.reshape(tuple(shape.values()))
+        others = [a for a in names if a not in axes]
+        me = dist.get_rank()
+        for fixed in itertools.product(*(range(shape[a]) for a in others)):
+            index = tuple(fixed[others.index(a)] if a in others
+                          else slice(None) for a in names)
+            members = grid[index].flatten().tolist()
+            group = dist.new_group(members)
+            if me in members:
+                cache[axes] = group
+    return cache[axes]
+
+
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """``x`` summed (or its elementwise maximum, ``op="max"``) over
+    ``group``, in place; counted as an ``all_reduce``."""
+    with _Timed(x):
+        dist.all_reduce(x, op=dist.ReduceOp.SUM if op == "sum"
+                        else dist.ReduceOp.MAX, group=group)
+    count("all_reduce")
+    return x
+
+
+def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` of ``group``, concatenated along ``dim`` in the
+    group's rank order; counted as an ``all_gather``."""
+    x = x.contiguous()
+    parts: List[torch.Tensor] = [torch.empty_like(x)
+                                 for _ in range(dist.get_world_size(group))]
+    with _Timed(x):
+        dist.all_gather(parts, x, group=group)
+    count("all_gather")
+    return torch.cat(parts, dim=dim)

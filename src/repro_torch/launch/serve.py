@@ -12,8 +12,17 @@ Devices and backends: ``device=None`` is the card and raises
 hand-written kernels and refuses the CPU. The CPU is used only when asked
 for by name: ``device="cpu", backend="torch"``.
 
+``mesh`` (``launch.mesh``, over the running process group) serves on
+it, as the reference's ``generate(mesh=)``: the model is built on the
+mesh (tensor parallel over a ``model`` axis larger than 1, each rank
+holding its shards), each rank serves its slice of the request batch by
+its coordinate on ``pod x data``, and the tokens are gathered over those
+axes at the end, so every rank returns the whole batch.
+
 Run it as ``PYTHONPATH=src python -m repro_torch.launch.serve`` (smoke
-configuration, seeded random weights).
+configuration, seeded random weights); under ``torchrun`` it serves over
+a ``(data, model)`` mesh of the ranks, ``model`` set by
+``--model-parallel``.
 """
 from __future__ import annotations
 
@@ -24,10 +33,13 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import PacingConfig, get_model_config
 from repro_torch.core import CoordinationAgent
-from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.steps import (_local, make_decode_step,
+                                      make_prefill_step)
 from repro_torch.models.api import Model, build_model
 
 
@@ -49,6 +61,7 @@ def generate(
     backend: str = "cuda",
     stats: Optional[Dict[str, Any]] = None,
     enc_embeds=None,                   # (B, S_enc, D), encoder-decoders
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict[str, float]]:
     """Greedy decode. Returns (tokens (B, S_prompt+new), agent summary).
 
@@ -58,6 +71,8 @@ def generate(
     built on ``device`` and initialised from ``seed``. An encoder-decoder
     needs ``enc_embeds`` (``ValueError`` without them): they are encoded
     once, and the memory goes into the prefill and every decode step.
+    ``mesh``: the module's docstring; a given ``model`` must have been
+    built on it when its ``model`` axis is larger than 1.
     ``stats``, when given, receives ``prefill_s`` (the encoder's time
     included) and ``decode_s`` (one entry per step), host clock around
     synchronised work."""
@@ -69,7 +84,7 @@ def generate(
         raise ValueError(f"{cfg.name} is an encoder-decoder: serving it "
                          f"needs enc_embeds")
     if model is None:
-        model = build_model(cfg, device=device)
+        model = build_model(cfg, device=device, mesh=mesh)
         model.init(seed)
     elif device is not None and torch.device(device) != model.device:
         raise ValueError(f"model is on {model.device}, device={device!r}")
@@ -79,10 +94,19 @@ def generate(
     if not isinstance(prompt_tokens, torch.Tensor):
         prompt_tokens = torch.from_numpy(np.asarray(prompt_tokens))
     tokens = prompt_tokens.to(device=dev, dtype=torch.long)
+    dp = 1 if mesh is None else mesh_lib.dp_size(mesh)
+    if dp > 1:
+        batch_group = mesh_lib.axes_group(mesh, mesh_lib.batch_axes(mesh))
+        idx = mesh_lib.coordinate(mesh, mesh_lib.batch_axes(mesh))
+        tokens = _local({"tokens": tokens}, dp, idx)["tokens"]
+        if enc_embeds is not None:
+            enc_embeds = _local({"e": torch.as_tensor(enc_embeds)}, dp,
+                                idx)["e"]
     B, S = tokens.shape
     max_len = S + max_new_tokens
-    prefill = make_prefill_step(model, max_len=max_len, backend=backend)
-    decode = make_decode_step(model, backend=backend)
+    prefill = make_prefill_step(model, max_len=max_len, backend=backend,
+                                mesh=mesh)
+    decode = make_decode_step(model, backend=backend, mesh=mesh)
     step_s = []
 
     with torch.inference_mode():
@@ -117,7 +141,10 @@ def generate(
             tok = torch.argmax(lg, -1)
     if stats is not None:
         stats.update(prefill_s=prefill_s, decode_s=step_s)
-    return torch.cat(out, dim=1), agent.summary()
+    out = torch.cat(out, dim=1)
+    if dp > 1:
+        out = mesh_lib.all_gather(out, batch_group, 0)
+    return out, agent.summary()
 
 
 def main() -> None:
@@ -129,7 +156,12 @@ def main() -> None:
     ap.add_argument("--device", default=None,
                     help="default: the card (raises without one)")
     ap.add_argument("--backend", default="cuda", choices=("cuda", "torch"))
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="the mesh's 'model' axis under torchrun (tensor "
+                         "parallelism); the rest of the ranks are 'data'")
     args = ap.parse_args()
+    mesh, device = mesh_lib.mesh_from_torchrun(args.device,
+                                               args.model_parallel)
     cfg = get_model_config(args.arch, smoke=True)
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size,
@@ -138,10 +170,14 @@ def main() -> None:
     if cfg.is_encoder_decoder:
         enc = (rng.standard_normal((args.batch, args.prompt_len,
                                     cfg.d_model)) * 0.02).astype(np.float32)
-    toks, summary = generate(arch=args.arch, prompt_tokens=prompts,
-                             max_new_tokens=args.max_new_tokens,
-                             device=args.device, backend=args.backend,
-                             enc_embeds=enc)
+    try:
+        toks, summary = generate(arch=args.arch, prompt_tokens=prompts,
+                                 max_new_tokens=args.max_new_tokens,
+                                 device=device, backend=args.backend,
+                                 enc_embeds=enc, mesh=mesh)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
     print("generated shape:", tuple(toks.shape))
     print(json.dumps(summary, indent=1, default=str))
 

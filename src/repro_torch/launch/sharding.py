@@ -14,20 +14,43 @@ be a ``DeviceMesh`` or anything with an ordered ``shape`` mapping (the
 production sizes, with no ranks behind them).
 
 ``logical(x, *spec)`` keeps the reference's rank check and is otherwise
-the identity: on a data-parallel mesh each rank already holds its local
-slice, and the port has no compiler to take a sharding constraint.
-``named_sharding`` gives DTensor placements (``Shard(dim)`` or
-``Replicate()`` per mesh axis). ``tp_row_matmul``, ``manual_axes`` and
-``shard_map_mesh`` come with the tensor-parallel slice.
+the identity: each rank already holds its local slice, and the port has
+no compiler to take a sharding constraint. ``named_sharding`` gives
+DTensor placements (``Shard(dim)`` or ``Replicate()`` per mesh axis): a
+description, which no code of the port places tensors by.
+
+Tensor parallelism (a ``model`` axis larger than 1) is done by hand, in
+the Megatron manner, with explicit shards and explicit collectives:
+:func:`shard_of` / :func:`gather_full` cut a whole leaf to this rank's
+shard by its resolved spec and make it whole again; :func:`model_axis` is
+the bound mesh's ``model`` axis (its size, this rank's index, its group),
+which the layers read; :func:`copy_to_model` (the identity, whose
+backward all-reduces over ``model``) enters a column-parallel region,
+:func:`reduce_from_model` (an all-reduce, whose backward is the identity)
+leaves a row-parallel one, and :func:`tp_row_matmul` is the row-parallel
+product. The reference's ``shard_map`` regions have one counterpart:
+:func:`manual_axes`, the axes whose reduction an enclosing step already
+owns (bound by :func:`manual`), which the layers read, as the
+reference's ``moe_apply`` does, and then leave alone; :func:`runs_whole`
+marks ``model`` so around a layer whose width the axis does not divide,
+which then runs whole on every rank, as the reference's fallback
+replicates it. The reference's
+``shard_map_mesh`` has none: each step of the port already runs per
+rank, on the bound mesh.
+:func:`current` / :func:`restored` carry the binding into a remat
+recompute, which runs in the backward, outside the forward's context.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import os
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, FrozenSet, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.mesh import mesh_shape
 
 LogicalSpec = Sequence[Union[str, None, Tuple[str, ...]]]
@@ -55,6 +78,7 @@ class _Ctx(threading.local):
         self.mesh = None
         self.rules: Optional[Dict[str, Union[str, Tuple[str, ...]]]] = None
         self.fallbacks: List[Tuple[str, int, int]] = []
+        self.manual: FrozenSet[str] = frozenset()
 
 
 _ctx = _Ctx()
@@ -75,6 +99,52 @@ def axis_rules(mesh, rules: Optional[Dict] = None):
 
 def active_mesh():
     return _ctx.mesh
+
+
+@contextlib.contextmanager
+def manual(axes: Sequence[str]):
+    """Mark ``axes`` manual for the duration of the context: an enclosing
+    step owns their reduction (the reference's ``shard_map`` binds them
+    ``Manual``), so the layers issue no collective over them."""
+    prev = _ctx.manual
+    _ctx.manual = prev | frozenset(axes)
+    try:
+        yield
+    finally:
+        _ctx.manual = prev
+
+
+def manual_axes() -> FrozenSet[str]:
+    """The axes an enclosing step has marked manual (:func:`manual`)."""
+    return _ctx.manual
+
+
+def runs_whole(width: int):
+    """A context for a layer of ``width`` (its query heads) that the
+    ``model`` axis does not divide: the reference's divisibility fallback
+    replicates it, so the layer runs whole on every rank of ``model``,
+    :func:`model_axis` ``None`` inside (no shard, no collective). Nothing
+    is bound where the axis divides ``width`` or there is none."""
+    tp = model_axis()
+    if tp is None or width % tp.size == 0:
+        return contextlib.nullcontext()
+    return manual(("model",))
+
+
+def current() -> Tuple[Any, Any, FrozenSet[str]]:
+    """The binding in force: (mesh, rules, manual axes)."""
+    return _ctx.mesh, _ctx.rules, _ctx.manual
+
+
+@contextlib.contextmanager
+def restored(state: Tuple[Any, Any, FrozenSet[str]]):
+    """Bind what :func:`current` returned, for the duration."""
+    prev = current()
+    _ctx.mesh, _ctx.rules, _ctx.manual = state
+    try:
+        yield
+    finally:
+        _ctx.mesh, _ctx.rules, _ctx.manual = prev
 
 
 def fallbacks() -> List[Tuple[str, int, int]]:
@@ -154,3 +224,188 @@ def named_sharding(shape: Sequence[int], spec: LogicalSpec):
             by_axis[a] = d
     return tuple(Shard(by_axis[a]) if a in by_axis else Replicate()
                  for a in mesh_shape(_ctx.mesh))
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAxis:
+    """The ``model`` axis of the bound mesh: its size, this rank's index
+    on it and its process group."""
+    size: int
+    index: int
+    group: Any
+
+
+def model_axis() -> Optional[ModelAxis]:
+    """The bound mesh's ``model`` axis when it is larger than 1 and not
+    manual; ``None`` otherwise (the layers then run whole, with no
+    collective)."""
+    mesh = _ctx.mesh
+    if mesh is None or "model" in manual_axes() or \
+            mesh_shape(mesh).get("model", 1) <= 1:
+        return None
+    held = mesh.__dict__.get("_repro_model_axis")
+    if held is None:
+        held = ModelAxis(mesh_shape(mesh)["model"],
+                         mesh_lib.coordinate(mesh, ("model",)),
+                         mesh_lib.axes_group(mesh, ("model",)))
+        mesh.__dict__["_repro_model_axis"] = held
+    return held
+
+
+class _CopyToModel(torch.autograd.Function):
+    """The identity; its backward sums the gradient over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return mesh_lib.all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The sum over the group, in ``dtype``, cast back to x's dtype; its
+    backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, x, group, dtype):
+        y = x.to(dtype, copy=True).contiguous()
+        mesh_lib.all_reduce(y, group)
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _MeanFromBatch(torch.autograd.Function):
+    """The mean over the group; its backward is the identity (the step's
+    average of the gradients over the same ranks supplies the 1 / n)."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        y = x.clone().contiguous()
+        mesh_lib.all_reduce(y, group)
+        return y / torch.full((), float(n), dtype=y.dtype, device=y.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """Enter a column-parallel region: ``x`` (replicated over ``model``)
+    as it is, with a backward that all-reduces the ranks' partial
+    gradients over ``model``. The identity without a model axis, or when
+    no gradient is taken."""
+    tp = model_axis()
+    if tp is None or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _CopyToModel.apply(x, tp.group)
+
+
+def reduce_from_model(x: torch.Tensor, dtype: Optional[torch.dtype] = None
+                      ) -> torch.Tensor:
+    """Leave a row-parallel region: the sum of the ranks' partial ``x``
+    over ``model`` (an all-reduce in ``dtype``, x's own by default), whose
+    backward is the identity. The identity without a model axis."""
+    tp = model_axis()
+    if tp is None:
+        return x
+    return _ReduceFromModel.apply(x, tp.group, dtype or x.dtype)
+
+
+def mean_over_batch(x: torch.Tensor) -> torch.Tensor:
+    """The mean of ``x`` over the bound mesh's batch axes that are not
+    manual (the reference's ``pmean``), with the identity for backward:
+    the step averages the gradients over the same ranks. The identity
+    when those axes have size 1."""
+    mesh = _ctx.mesh
+    if mesh is None:
+        return x
+    shape = mesh_shape(mesh)
+    manual = manual_axes()
+    axes = tuple(a for a in mesh_lib.batch_axes(mesh)
+                 if a not in manual and shape[a] > 1)
+    if not axes:
+        return x
+    n = 1
+    for a in axes:
+        n *= shape[a]
+    return _MeanFromBatch.apply(x, mesh_lib.axes_group(mesh, axes), n)
+
+
+def gather_from_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Every model rank's ``x`` concatenated along ``dim`` (no gradient);
+    ``x`` without a model axis."""
+    tp = model_axis()
+    if tp is None:
+        return x
+    return mesh_lib.all_gather(x.detach(), tp.group, dim % x.dim())
+
+
+def tp_row_matmul(h: torch.Tensor, w: torch.Tensor, shard_name: str = "ff"
+                  ) -> torch.Tensor:
+    """Row-parallel product: ``h`` (..., F / tp) times this rank's rows of
+    ``w`` (F / tp, D), summed over ``model``; ``h @ w`` without a model
+    axis. ``shard_name`` is the logical axis of the contraction, as in the
+    reference's signature (``"heads"`` for ``wo``, ``"ff"`` for
+    ``w_down``).
+
+    Each rank's partial product is rounded to the product's dtype. Under
+    ``REPRO_BF16_TP=1`` the partials are summed in that dtype (bf16 for a
+    bf16 model: the reference's explicit ``shard_map`` ``psum``).
+    Otherwise they are summed in float32 and the sum rounded back: the
+    reference leaves this sum to GSPMD, and its compiled HLO at a
+    ``(data 1, model 2)`` mesh (``jax.jit(...).lower(...).compile()`` of
+    the bf16 smoke Qwen2's prefill on the CPU) all-reduces
+    ``f32[B, S, D]``, each partial ``dot`` rounded to bf16 first."""
+    if h.shape[-1] != w.shape[0]:
+        raise ValueError(f"tp_row_matmul: h {tuple(h.shape)} and "
+                         f"w {tuple(w.shape)} over '{shard_name}' differ")
+    out = h @ w
+    if model_axis() is None:
+        return out
+    bf16 = bool(os.environ.get("REPRO_BF16_TP"))
+    return reduce_from_model(out, out.dtype if bf16 else torch.float32)
+
+
+def shard_of(full: torch.Tensor, spec: Sequence, mesh=None) -> torch.Tensor:
+    """This rank's slice of the whole leaf ``full`` under its resolved
+    ``spec`` (a view): each sharded dim cut into the product of its axes'
+    sizes, the piece at this rank's flat coordinate on them."""
+    mesh = mesh if mesh is not None else _ctx.mesh
+    shape = mesh_shape(mesh)
+    out = full
+    for d, e in enumerate(spec):
+        if e is None:
+            continue
+        axes = (e,) if isinstance(e, str) else tuple(e)
+        n = 1
+        for a in axes:
+            n *= shape[a]
+        k = full.shape[d] // n
+        out = out.narrow(d, mesh_lib.coordinate(mesh, axes) * k, k)
+    return out
+
+
+def gather_full(local: torch.Tensor, spec: Sequence, mesh=None
+                ) -> torch.Tensor:
+    """The whole leaf from every rank's :func:`shard_of` slice: an
+    all-gather over each sharded dim's axes (every rank of those axes
+    joins)."""
+    mesh = mesh if mesh is not None else _ctx.mesh
+    out = local.detach()
+    for d, e in enumerate(spec):
+        if e is None:
+            continue
+        axes = (e,) if isinstance(e, str) else tuple(e)
+        out = mesh_lib.all_gather(out, mesh_lib.axes_group(mesh, axes), d)
+    return out

@@ -9,18 +9,29 @@ of its own: the model does, and the step updates them in place (the
 reference's jitted step donates them and returns new ones), so it maps
 ``(opt_state, batch)`` to ``(opt_state, metrics)``.
 
-Under a data-parallel ``mesh`` (``launch.mesh``; a ``model`` axis larger
-than 1 is refused) every rank is handed the same global batch and takes
-its slice by its coordinate on ``batch_axes(mesh)``, as GSPMD shards the
-batch; the gradients are averaged over ``pod x data``
+Under a ``mesh`` (``launch.mesh``) every rank is handed the same global
+batch and takes its slice by its coordinate on ``batch_axes(mesh)``, as
+GSPMD shards the batch; the gradients are averaged over ``pod x data``
 (``optim.compress.hierarchical_grad_reduce(compress="none")``) and the
-loss metrics over the ranks. That is the global batch's gradient when
+loss metrics over the ranks, over one rank too (its all-reduces are
+issued, and change no bit). That is the global batch's gradient when
 each rank's share of the loss's tokens is equal (no ``loss_mask``; a MoE
-aux loss is averaged over the ranks, where GSPMD takes it over the whole
-batch). With ``opt_cfg.zero1`` the moments keep this rank's ZeRO-1 slice
-(``optim.adamw.Zero1``, the step's ``zero`` attribute: build the state
-with ``init_opt_state(cfg, params, step.zero)``). The dry-run lowering
-comes with its slice (``ROADMAP.md``).
+aux loss is averaged over the ranks, as the reference's ``shard_map``
+``pmean`` takes it). With ``opt_cfg.zero1`` the moments keep this rank's
+ZeRO-1 slice (``optim.adamw.Zero1``, the step's ``zero`` attribute: build
+the state with ``init_opt_state(cfg, params, step.zero)``).
+
+A ``model`` axis larger than 1 is tensor parallelism: the model must be
+built on the same mesh (``build_model(cfg, mesh=)``: it holds this rank's
+shards and runs its layers tensor parallel), and a layer kind without a
+tensor-parallel path is refused (``models.transformer.require_supported``). A sharded
+leaf's gradient is this rank's shard's, and a replicated leaf's (a norm's,
+the router's) comes out equal on every model rank, so both are reduced
+over the batch axes only; the global norm for clipping sums the sharded
+leaves' squares over ``model`` (``optim.adamw.ModelShards``). The
+collectives of a step are counted by ``mesh.collective_counts``, those a
+remat recompute issues again included. The dry-run lowering comes with
+its slice (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -30,8 +41,10 @@ import torch
 
 from repro_torch.configs.base import OptimizerConfig
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import transformer as tfm
 from repro_torch.models.api import Model
 from repro_torch.optim import adamw_update, decay_mask, zero1_layout
+from repro_torch.optim.adamw import model_shards
 from repro_torch.optim.compress import hierarchical_grad_reduce
 
 
@@ -99,13 +112,15 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig,
         raise ValueError("the model's parameters do not require grad: call "
                          "model.requires_grad_(True) before training")
     decay = decay_mask(model.cfg, params)
-    zero = None
+    zero = shards = None
     dp, idx = 1, 0
     if mesh is not None:
-        mesh_lib.require_data_parallel(mesh)
+        tfm.require_supported(mesh, model.cfg)
+        require_model_on(model, mesh)
         axes = mesh_lib.batch_axes(mesh)
         dp, idx = mesh_lib.dp_size(mesh), mesh_lib.coordinate(mesh, axes)
         zero = zero1_layout(opt_cfg, params, model.cfg, mesh)
+        shards = model_shards(model.spec, mesh)
 
     def reduce(tree):
         if mesh is None:
@@ -120,7 +135,8 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig,
     def train_step(opt_state, batch):
         grads, metrics = grads_of(batch)
         _, opt_state, opt_metrics = adamw_update(opt_cfg, params, grads,
-                                                 opt_state, decay, zero)
+                                                 opt_state, decay, zero,
+                                                 shards)
         return opt_state, dict(reduce(metrics), **opt_metrics)
 
     def accum_step(opt_state, batch):
@@ -144,7 +160,8 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig,
         grads = {n: (gather(n, acc.pop(n)) / kt).to(p.dtype)
                  for n, p in params.items()}
         _, opt_state, opt_metrics = adamw_update(opt_cfg, params, grads,
-                                                 opt_state, decay, zero)
+                                                 opt_state, decay, zero,
+                                                 shards)
         metrics = reduce({"loss": loss_sum / kt, "lm_loss": loss_sum / kt,
                           "aux_loss": aux_sum / kt})
         return opt_state, dict(metrics, **opt_metrics)
@@ -154,14 +171,34 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig,
     return step
 
 
-def make_prefill_step(model: Model, max_len: int, backend: str = "cuda"):
+def require_model_on(model: Model, mesh) -> None:
+    """Raise ``ValueError`` when ``mesh`` has a ``model`` axis larger than
+    1 and ``model`` was not built on it (it would hold whole leaves)."""
+    if mesh is not None and mesh_lib.model_size(mesh) > 1 and \
+            model.mesh is not mesh:
+        raise ValueError(
+            f"a mesh whose 'model' axis is {mesh_lib.model_size(mesh)} "
+            f"needs the model built on it, holding its shards: "
+            f"build_model(cfg, mesh=mesh) or convert.shard_params")
+
+
+def make_prefill_step(model: Model, max_len: int, backend: str = "cuda",
+                      mesh=None):
+    """The prefill; under ``mesh`` (the model's) the last position's
+    logits are gathered whole over ``model``."""
+    require_model_on(model, mesh)
+
     def prefill_step(batch):
         logits, cache = model.prefill(batch, max_len=max_len, backend=backend)
         return logits, cache
     return prefill_step
 
 
-def make_decode_step(model: Model, backend: str = "cuda"):
+def make_decode_step(model: Model, backend: str = "cuda", mesh=None):
+    """One decode step; under ``mesh`` (the model's) its logits are
+    gathered whole over ``model``."""
+    require_model_on(model, mesh)
+
     def decode_step(token, pos, kv_len, cache, memory=None):
         logits, cache = model.decode_step(token, pos, cache, kv_len=kv_len,
                                           memory=memory, backend=backend)

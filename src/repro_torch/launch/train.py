@@ -23,24 +23,27 @@ included (``Prefetcher(start_step=)``), so a resumed run takes the same
 steps as a straight one. ``ckpt_every`` or ``resume`` without
 ``ckpt_dir``, and a ``ckpt_dir`` with neither, are refused.
 
-``mesh`` (``launch.mesh``, over the running process group) trains data
-parallel: ``make_train_step(..., mesh=)`` on every rank, each taking its
-slice of the same global batch; with ZeRO-1 (the optimizer's default) a
-checkpoint gathers the moments' slices, rank 0 writes whole leaves as the
-reference's one process does and the other ranks wait at a barrier, and
-a restore reads whole leaves and keeps this rank's slice, so a checkpoint
-written at one world size restores at another.
+``mesh`` (``launch.mesh``, over the running process group) trains on
+it: ``make_train_step(..., mesh=)`` on every rank, each taking its slice
+of the same global batch over ``pod x data``, and over a ``model`` axis
+larger than 1 tensor parallel (the model is built on the mesh and holds
+this rank's shards). A checkpoint gathers the moments' ZeRO-1 slices
+(the optimizer's default) and the model-sharded leaves, rank 0 writes
+whole leaves as the reference's one process does and the other ranks
+wait at a barrier, and a restore reads whole leaves and keeps this rank's
+shard and slice, so a checkpoint written at one ``(data, model)`` restores
+at another.
 
 Run it as ``PYTHONPATH=src python -m repro_torch.launch.train`` (smoke
 configuration, seeded random weights); under ``torchrun`` it trains over
-a ``(data, model=1)`` mesh of the ranks.
+a ``(data, model)`` mesh of the ranks, ``model`` set by
+``--model-parallel`` (1 by default).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
-import os
 import time
 from typing import Any, Dict, Optional
 
@@ -114,7 +117,7 @@ def train(
     if cfg.name != get_model_config(arch).name:
         raise ValueError(f"model is {cfg.name!r}, arch is {arch!r}")
     if model is None:
-        model = build_model(cfg, device=device)
+        model = build_model(cfg, device=device, mesh=mesh)
         model.init(seed)
     elif device is not None and torch.device(device) != model.device:
         raise ValueError(f"model is on {model.device}, device={device!r}")
@@ -137,7 +140,7 @@ def train(
         t = time.perf_counter()
         _, meta = mgr.restore(
             s, convert.train_state_tree(params, opt_state, cfg),
-            placement_fn=_zero_placement(params, zero, cfg))
+            placement_fn=_zero_placement(params, zero, cfg, model))
         log["restore_s"] = time.perf_counter() - t
         start_step = int(meta.get("next_step", s))
 
@@ -175,7 +178,8 @@ def train(
                       f"gnorm {log['grad_norm'][-1]:.2f} "
                       f"t {rec.total_time*1e3:.0f}ms")
             if mgr and ckpt_every and (step + 1) % ckpt_every == 0:
-                mgr.save(step + 1, _save_tree(params, opt_state, zero, cfg),
+                mgr.save(step + 1, _save_tree(params, opt_state, zero, cfg,
+                                              model),
                          metadata={"next_step": step + 1, "arch": arch})
                 if mesh is not None:
                     dist.barrier()
@@ -197,36 +201,61 @@ def train(
                        final_loss=losses[-1] if losses else float("nan"))
 
 
-def _save_tree(params, opt_state, zero, cfg):
+def _tp(model) -> bool:
+    return model is not None and model.mesh is not None and \
+        mesh_lib.model_size(model.mesh) > 1
+
+
+def _save_tree(params, opt_state, zero, cfg, model=None):
     """The tree a checkpoint saves: under ZeRO-1 each sharded moment is
-    gathered whole when the snapshot reaches it (every rank joins)."""
-    if zero is None:
+    gathered whole over ``pod x data``, and on a tensor-parallel
+    ``model`` each model-sharded leaf (parameter or moment) over
+    ``model``, when the snapshot reaches it (every rank joins)."""
+    tp = _tp(model)
+    if zero is None and not tp:
         return convert.train_state_tree(params, opt_state, cfg)
-    whole = lambda tree: {n: (lambda n=n, t=t: zero.gather(n, t))
-                          for n, t in tree.items()}
+
+    def whole(n, t):
+        if zero is not None:
+            t = zero.gather(n, t)
+        return model.gather(n, t) if tp else t
+
+    lazy = lambda tree: {n: (lambda n=n, t=t: whole(n, t))
+                         for n, t in tree.items()}
+    ptree = {n: (lambda n=n, t=t: model.gather(n, t))
+             for n, t in params.items()} if tp else params
     return convert.train_state_tree(
-        params, opt_state._replace(mu=whole(opt_state.mu),
-                                   nu=whole(opt_state.nu)), cfg)
+        ptree, opt_state._replace(mu=lazy(opt_state.mu),
+                                  nu=lazy(opt_state.nu)), cfg)
 
 
-def _zero_placement(params, zero, cfg):
-    """``placement_fn`` for a restore under ZeRO-1: a moment's whole host
-    leaf is cut to this rank's slice; everything else is kept whole."""
-    if zero is None:
+def _zero_placement(params, zero, cfg, model=None):
+    """``placement_fn`` for a restore under ZeRO-1 and on a
+    tensor-parallel ``model``: a whole host leaf is cut to this rank's
+    shard over ``model`` (a parameter or a moment), and a moment further
+    to its ZeRO-1 slice; ``None`` when nothing is cut."""
+    tp = _tp(model)
+    if zero is None and not tp:
         return None
     names = {}
     tree = convert.reference_tree({n: n for n in params}, cfg)
     for path, leaf in _flatten_with_paths(tree):
-        for which in (1, 2):                      # mu, nu
+        for which in ("/0", "/1/1", "/1/2"):          # params, mu, nu
             if isinstance(leaf, Stacked):
-                names.update({f"/1/{which}{path}[{t}]": n
+                names.update({f"{which}{path}[{t}]": (which, n)
                               for t, n in enumerate(leaf)})
             else:
-                names[f"/1/{which}{path}"] = leaf
+                names[f"{which}{path}"] = (which, leaf)
 
     def place(path, host):
-        n = names.get(path)
-        return host if n is None else zero.shard(n, host)
+        which, n = names.get(path, (None, None))
+        if n is None:
+            return host
+        if tp:
+            host = model.shard(n, host)
+        if which != "/0" and zero is not None:
+            host = zero.shard(n, host)
+        return host
     return place
 
 
@@ -244,16 +273,12 @@ def main() -> None:
     ap.add_argument("--device", default=None,
                     help="default: the card (raises without one)")
     ap.add_argument("--backend", default="cuda", choices=("cuda", "torch"))
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="the mesh's 'model' axis under torchrun (tensor "
+                         "parallelism); the rest of the ranks are 'data'")
     args = ap.parse_args()
-    mesh, device = None, args.device
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:     # started by torchrun
-        cpu = device == "cpu"
-        if not cpu:
-            local = int(os.environ.get("LOCAL_RANK", "0"))
-            torch.cuda.set_device(local)
-            device = f"cuda:{local}"
-        dist.init_process_group("gloo" if cpu else "nccl")
-        mesh = mesh_lib.make_local_mesh(device_type="cpu" if cpu else "cuda")
+    mesh, device = mesh_lib.mesh_from_torchrun(args.device,
+                                               args.model_parallel)
     try:
         res = train(arch=args.arch, smoke=args.smoke, steps=args.steps,
                     seq_len=args.seq_len, global_batch=args.global_batch,

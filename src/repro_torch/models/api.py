@@ -16,9 +16,18 @@ are built as serving parameters (``requires_grad=False``);
 ``model.requires_grad_(True)`` (``nn.Module``'s) makes them trainable, as
 ``launch.train.train`` does. The abstract input specs of the dry-run
 come with its port.
+
+``mesh`` (``launch.mesh``) is the mesh the model runs on: every method
+binds it (``launch.sharding.axis_rules``) for its call. On a mesh whose
+``model`` axis is larger than 1 the model holds only this rank's shard
+of each parameter, as :attr:`Model.spec` gives it
+(``transformer.tp_param_spec``), and runs tensor parallel; a layer kind
+that has no tensor-parallel path is refused when the model is built
+(``transformer.require_supported``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -26,34 +35,73 @@ from torch import nn
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import sharding as shd
 from repro_torch.models import transformer as tfm
 
 
 class Model(nn.Module):
     """``device=None`` is the card, and raises without one."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, *, device=None, mesh=None):
         super().__init__()
         tfm.check_supported(cfg)
+        if mesh is not None:
+            tfm.require_supported(mesh, cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
+        # each parameter's spec on the mesh (None without one)
+        self.spec: Optional[Dict[str, Tuple]] = None if mesh is None \
+            else tfm.tp_param_spec(cfg, mesh)
         self.params: Optional[tfm.Params] = None
 
     # -- construction ------------------------------------------------------
     def init(self, seed: int = 0) -> tfm.Params:
         """Seeded random parameters at the configuration's widths, drawn
-        on the model's device (a ``torch.Generator`` there)."""
+        on the model's device (a ``torch.Generator`` there). On a mesh
+        each leaf is drawn whole, as one process draws it, and cut to this
+        rank's shard at once (``transformer.init_params(keep=)``)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.params = tfm.init_params(self.cfg, gen, device=self.device)
+        keep = None if self.mesh is None else self.shard
+        self.params = tfm.init_params(self.cfg, gen, device=self.device,
+                                      keep=keep)
         return self.params
 
+    def shard(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of parameter ``name`` from its whole value
+        (a view; the value itself without a mesh)."""
+        if self.mesh is None:
+            return whole
+        return shd.shard_of(whole, self.spec[name], self.mesh)
+
+    def gather(self, name: str, part: torch.Tensor) -> torch.Tensor:
+        """The whole value of parameter ``name`` from this rank's shard
+        ``part`` (an all-gather over ``model`` for a sharded leaf: every
+        rank of the mesh joins; ``part`` itself, detached, for a leaf that
+        is not sharded)."""
+        if self.mesh is None:
+            return part.detach()
+        return shd.gather_full(part, self.spec[name], self.mesh)
+
     def param_spec(self) -> Dict[str, Tuple]:
-        """Each parameter's resolved spec under the bound axis rules
+        """Each parameter's resolved spec: on a model built with a mesh,
+        :attr:`spec`; otherwise under the bound axis rules
         (:func:`repro_torch.models.transformer.param_spec`)."""
+        if self.spec is not None:
+            return dict(self.spec)
         return tfm.param_spec(dict(self._p().named_parameters()), self.cfg)
 
+    def bound(self):
+        """A context binding the model's mesh (nothing without one, or
+        when it is bound already)."""
+        if self.mesh is None or shd.active_mesh() is self.mesh:
+            return contextlib.nullcontext()
+        return shd.axis_rules(self.mesh)
+
     def init_cache(self, batch: int, max_len: int) -> tfm.Cache:
-        return tfm.init_cache(self.cfg, batch, max_len, device=self.device)
+        with self.bound():
+            return tfm.init_cache(self.cfg, batch, max_len,
+                                  device=self.device)
 
     def _p(self) -> tfm.Params:
         if self.params is None:
@@ -65,8 +113,9 @@ class Model(nn.Module):
     def forward(self, batch: Dict[str, torch.Tensor], mode: str = "train",
                 cache: Optional[tfm.Cache] = None, *, backend: str = "cuda"
                 ) -> tfm.Output:
-        return tfm.forward(self._p(), batch, cfg=self.cfg, mode=mode,
-                           cache=cache, backend=backend)
+        with self.bound():
+            return tfm.forward(self._p(), batch, cfg=self.cfg, mode=mode,
+                               cache=cache, backend=backend)
 
     def loss(self, batch: Dict[str, torch.Tensor], *, backend: str = "cuda"
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -74,27 +123,36 @@ class Model(nn.Module):
         :func:`repro_torch.models.transformer.loss_fn`. Raises
         ``NotImplementedError`` for a configuration with RWKV-6 or Mamba
         layers."""
-        return tfm.loss_fn(self._p(), batch, cfg=self.cfg, backend=backend)
+        with self.bound():
+            return tfm.loss_fn(self._p(), batch, cfg=self.cfg,
+                               backend=backend)
 
     def prefill(self, batch: Dict[str, torch.Tensor], max_len: int, *,
                 backend: str = "cuda") -> Tuple[torch.Tensor, tfm.Cache]:
-        return tfm.prefill(self._p(), batch, cfg=self.cfg, max_len=max_len,
-                           backend=backend)
+        with self.bound():
+            return tfm.prefill(self._p(), batch, cfg=self.cfg,
+                               max_len=max_len, backend=backend)
 
     def encode(self, enc_embeds: torch.Tensor, *, backend: str = "cuda"
                ) -> torch.Tensor:
         """The encoder-decoder's memory (B, S_enc, D) from frame
         embeddings (B, S_enc, D)."""
-        return tfm.encode(self._p(), self.cfg, enc_embeds, backend=backend)
+        with self.bound():
+            return tfm.encode(self._p(), self.cfg, enc_embeds,
+                              backend=backend)
 
     def decode_step(self, token, pos, cache, kv_len=None, memory=None, *,
                     backend: str = "cuda") -> Tuple[torch.Tensor, tfm.Cache]:
-        return tfm.decode_step(self._p(), token, pos, cache, cfg=self.cfg,
-                               kv_len=kv_len, memory=memory, backend=backend)
+        with self.bound():
+            return tfm.decode_step(self._p(), token, pos, cache,
+                                   cfg=self.cfg, kv_len=kv_len,
+                                   memory=memory, backend=backend)
 
 
-def build_model(cfg: ModelConfig, *, device=None) -> Model:
+def build_model(cfg: ModelConfig, *, device=None, mesh=None) -> Model:
     """Raises ``NotImplementedError`` for a configuration with a layer kind
     the port does not build (every configuration of the registry has only
-    built kinds), ``RuntimeError`` for ``device=None`` without a card."""
-    return Model(cfg, device=device)
+    built kinds), or, on a ``mesh`` whose ``model`` axis is larger than 1,
+    one with no tensor-parallel path; ``RuntimeError`` for
+    ``device=None`` without a card."""
+    return Model(cfg, device=device, mesh=mesh)

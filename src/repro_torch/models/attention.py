@@ -21,6 +21,20 @@ key ``kr``, ``max_len`` long, and its decode attends against it in the
 absorbed form. Where the reference returns a new cache (``.at[].set`` and
 ``dynamic_update_slice``, with the cache donated to the step), the port
 writes into the preallocated cache in place and returns the same dict.
+
+Under a bound mesh whose ``model`` axis is larger than 1
+(``launch.sharding.model_axis``) GQA runs tensor parallel
+(:func:`local_heads`): each rank holds its ``H / tp`` query heads'
+columns of ``wq`` / ``bq`` and rows of ``wo``, and its ``KV / tp`` KV
+heads' columns of ``wk`` / ``wv`` / ``bk`` / ``bv`` where ``tp`` divides
+``KV``; RoPE, the ring cache and K4 run at the local heads, the cache
+holds only the local KV heads, and ``wo`` is a row-parallel product
+(``tp_row_matmul``). Where ``tp`` does not divide the query heads
+(:func:`heads_sharded`; Qwen2-7B's 28 at ``model`` 16) every rank holds
+the whole attention and runs it whole, with no collective
+(``launch.sharding.runs_whole``): the reference's divisibility fallback,
+"replicated attention compute when heads % 16 != 0". MLA and cross
+attention have no tensor-parallel path yet.
 """
 from __future__ import annotations
 
@@ -33,6 +47,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
+from repro_torch.launch import sharding as shd
 from repro_torch.models.params import dense_init, ones, param, zeros
 from repro_torch.models.rope import apply_mrope, apply_rope
 
@@ -75,6 +90,40 @@ def _rope_qk(q, k, cfg: ModelConfig, positions, mrope_positions=None):
             apply_rope(k, positions, cfg.rope_theta))
 
 
+def heads_sharded(cfg: ModelConfig, tp: int) -> bool:
+    """Whether GQA shards its heads over a ``model`` axis of ``tp``: when
+    ``tp`` divides the query heads (else it runs whole on every rank)."""
+    return cfg.padded_heads() % tp == 0
+
+
+def kv_sharded(cfg: ModelConfig, tp: int) -> bool:
+    """Whether the KV projection is sharded over a ``model`` axis of
+    ``tp``: when ``tp`` divides the KV heads. Otherwise every rank keeps
+    the whole ``wk`` / ``wv`` / ``bk`` / ``bv``, although ``param_spec``
+    may split their flat ``KV * Dh`` columns (the smoke Qwen2's 64 at
+    ``tp`` 4, half a head a rank): the port shards at head granularity, as
+    the reference's activations do (their ``kv_heads`` constraint falls
+    back to replication there)."""
+    return cfg.padded_kv_heads() % tp == 0
+
+
+def local_heads(cfg: ModelConfig, tp: Optional[shd.ModelAxis]
+                ) -> Tuple[int, int, Optional[int]]:
+    """(query heads, KV heads, first KV head read) of this rank. Without a
+    model axis: (H, KV, None). Where the KV projection is sharded
+    (:func:`kv_sharded`): (H / tp, KV / tp, None). Otherwise ``tp`` is a
+    multiple of KV (``transformer.require_supported``) and this rank's
+    query heads all fall in one group: (H / tp, 1, that group's KV
+    head)."""
+    H, KV = cfg.padded_heads(), cfg.padded_kv_heads()
+    if tp is None:
+        return H, KV, None
+    Hl = H // tp.size
+    if kv_sharded(cfg, tp.size):
+        return Hl, KV // tp.size, None
+    return Hl, 1, tp.index * Hl // (H // KV)
+
+
 def cache_capacity(cfg: ModelConfig, max_len: int) -> int:
     if cfg.sliding_window and cfg.sliding_window > 0:
         return min(cfg.sliding_window, max_len)
@@ -83,7 +132,9 @@ def cache_capacity(cfg: ModelConfig, max_len: int) -> int:
 
 def gqa_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                    device=None) -> Dict[str, torch.Tensor]:
-    KV = cfg.padded_kv_heads()
+    """Zeros for this rank's KV heads (:func:`local_heads`)."""
+    with shd.runs_whole(cfg.padded_heads()):
+        _, KV, _ = local_heads(cfg, shd.model_axis())
     Dh = cfg.resolved_head_dim()
     C = cache_capacity(cfg, max_len)
     dt = dtype or getattr(torch, cfg.dtype)
@@ -115,7 +166,16 @@ def _ring_write(cache_kv: torch.Tensor, new: torch.Tensor,
     return cache_kv
 
 
-def gqa_apply(
+def gqa_apply(p: nn.ParameterDict, x: torch.Tensor, *, cfg: ModelConfig,
+              **kw) -> Tuple[torch.Tensor, Cache]:
+    """GQA attention (:func:`_gqa_apply`, whose keywords it takes), run
+    whole on every rank where the ``model`` axis does not divide the
+    query heads (:func:`heads_sharded`)."""
+    with shd.runs_whole(cfg.padded_heads()):
+        return _gqa_apply(p, x, cfg=cfg, **kw)
+
+
+def _gqa_apply(
     p: nn.ParameterDict,
     x: torch.Tensor,               # (B, S, D)
     *,
@@ -133,19 +193,28 @@ def gqa_apply(
     reference reads back from ``positions[0, 0]``; the caller passes it so
     that a Python int stays on the host and the cache write needs no
     device-to-host copy. The cache holds k after its rotation, so the
-    decode steps after an M-RoPE prefill read the M-RoPE keys."""
+    decode steps after an M-RoPE prefill read the M-RoPE keys. Tensor
+    parallel under a bound mesh (the module's docstring): the KV
+    projection that every rank keeps whole enters with
+    ``copy_to_model``, so that its gradient, of which each rank computes
+    its own query heads' part, is summed over ``model``."""
     B, S, D = x.shape
-    H = cfg.padded_heads()
-    KV = cfg.padded_kv_heads()
+    H, KV, kv0 = local_heads(cfg, shd.model_axis())
     Dh = cfg.resolved_head_dim()
+    kv = {n: p[n] for n in (("wk", "wv", "bk", "bv") if cfg.qkv_bias
+                            else ("wk", "wv"))}
+    if kv0 is not None:
+        cols = slice(kv0 * Dh, (kv0 + KV) * Dh)
+        kv = {n: shd.copy_to_model(w)[..., cols] for n, w in kv.items()}
 
+    x = shd.copy_to_model(x)
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = x @ kv["wk"]
+    v = x @ kv["wv"]
     if cfg.qkv_bias:
         q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+        k = k + kv["bk"]
+        v = v + kv["bv"]
     q = q.reshape(B, S, H, Dh)
     k = k.reshape(B, S, KV, Dh)
     v = v.reshape(B, S, KV, Dh)
@@ -180,7 +249,7 @@ def gqa_apply(
         raise ValueError(mode)
 
     out = out.reshape(B, S, H * Dh)
-    return out @ p["wo"], new_cache
+    return shd.tp_row_matmul(out, p["wo"], "heads"), new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,12 @@ a leaf with no place in the model, a model parameter no leaf filled, or a
 shape that differs raises ``ValueError``. :func:`jax_path` is the map the
 other way, from a parameter's name to its leaf's path in the reference's
 tree (the optimizer's decay mask reads leaf names and ranks from it).
+
+On a mesh whose ``model`` axis is larger than 1, ``params_from_jax(...,
+mesh=)`` loads the whole tree as above and then keeps this rank's shard
+of each leaf (:func:`shard_params`, by ``Model.spec``); the way back is
+``Model.gather`` leaf by leaf, whose whole leaves :func:`reference_tree`
+takes.
 """
 from __future__ import annotations
 
@@ -140,8 +146,20 @@ def _listify(node):
     return out
 
 
+def shard_params(model: Model, mesh) -> Model:
+    """A model on ``mesh`` holding this rank's shard of each of
+    ``model``'s whole parameters (moved out of ``model``, leaf by leaf: a
+    cut leaf is copied and its whole freed)."""
+    sharded = Model(model.cfg, device=model.device, mesh=mesh)
+    sharded.params = tfm._kept(sharded.shard, "", model._p())
+    model.params = None
+    return sharded
+
+
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
-                    device=None) -> Model:
+                    device=None, mesh=None) -> Model:
+    """The reference's tree loaded whole, then on ``mesh`` cut to this
+    rank's shards (:func:`shard_params`)."""
     model = Model(cfg, device=device)
     # allocate by drawing (any seed): the values are all overwritten below
     params = model.init(0)
@@ -164,4 +182,4 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
     left = sorted(set(own) - filled)
     if left:
         raise ValueError(f"no leaf of the tree filled {left}")
-    return model
+    return model if mesh is None else shard_params(model, mesh)

@@ -1,8 +1,17 @@
 """MLPs: dense (SwiGLU / GELU, optional bias) and dropless MoE.
 
-The counterpart of ``repro.models.mlp`` on one card: the reference's
-row-parallel ``tp_row_matmul`` is a plain product, and of the MoE layer
-only the branch without a mesh is ported (no ``shard_map``, no ``psum``).
+The counterpart of ``repro.models.mlp``. Under a bound mesh whose
+``model`` axis is larger than 1 both run tensor parallel, each rank
+holding its F-shard of every weight as ``param_spec`` resolves it: the
+dense MLP's ``w_gate`` / ``w_up`` / ``b_up`` columns and ``w_down`` rows,
+entered with ``copy_to_model`` and left through the row-parallel
+``tp_row_matmul`` (``b_down`` is added once, after the sum); the MoE's
+expert stacks on their ``d_ff_expert`` dim, as the reference's
+``shard_map`` branch holds them (F-sharded experts, no all-to-all: every
+rank routes all its tokens, which are the same on every model rank, and
+runs every expert's F-shard), the output summed over ``model`` in its
+dtype (the reference's ``psum``), the shared expert F-sharded like a
+dense MLP.
 
 The MoE layer is the sort-based dropless formulation: the (token, choice)
 pairs are sorted by expert with a stable sort, each expert's contiguous
@@ -22,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import sharding as shd
 from repro_torch.models.params import (dense_init, param, trunc_normal,
                                        zeros)
 
@@ -51,6 +61,7 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig,
 
 def mlp_apply(p: nn.ParameterDict, x: torch.Tensor, *, cfg: ModelConfig
               ) -> torch.Tensor:
+    x = shd.copy_to_model(x)
     if cfg.act == "swiglu":
         g = x @ p["w_gate"]
         u = x @ p["w_up"]
@@ -62,7 +73,7 @@ def mlp_apply(p: nn.ParameterDict, x: torch.Tensor, *, cfg: ModelConfig
         if cfg.mlp_bias:
             h = h + p["b_up"]
         h = F.gelu(h, approximate="tanh")      # jax.nn.gelu's default
-    out = h @ p["w_down"]
+    out = shd.tp_row_matmul(h, p["w_down"], "ff")
     if cfg.mlp_bias:
         out = out + p["b_down"]
     return out
@@ -129,11 +140,16 @@ def _route(p, x2: torch.Tensor, mo
 
 def _moe_local(p, x2: torch.Tensor, mo, act: str
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dropless MoE on the tokens x2 (T, D). Returns (out (T,D), aux)."""
+    """Dropless MoE on the tokens x2 (T, D). Returns (out (T,D), aux).
+    Under a model axis ``out`` is this rank's part of the sum over its
+    experts' F-shards; the routing is every rank's, and the experts'
+    gradients of the tokens and of the routing weights are partial, so
+    both enter the experts through ``copy_to_model``."""
     T, D = x2.shape
     k = mo.num_experts_per_tok
     E = mo.num_experts
     w, ids, aux = _route(p, x2, mo)
+    x2, w = shd.copy_to_model(x2), shd.copy_to_model(w)
     flat_ids = ids.reshape(-1)                               # (T*k,)
     order = torch.argsort(flat_ids, stable=True)
     token_of = order // k                                    # source token
@@ -159,13 +175,20 @@ def _moe_local(p, x2: torch.Tensor, mo, act: str
     return out, aux
 
 
-def moe_apply(p, x: torch.Tensor, *, cfg: ModelConfig
+def moe_apply(p, x: torch.Tensor, *, cfg: ModelConfig, mean_aux: bool = True
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (out (B,S,D), aux_loss scalar); the aux loss is computed
-    and, in serving, unused, as in the reference."""
+    and, in serving, unused, as in the reference. Under a bound mesh the
+    output is summed over ``model`` and, with ``mean_aux``, the aux loss
+    averaged over the batch axes that are not manual (``mean_over_batch``;
+    its backward is the identity, since the step averages the gradients
+    over them). Serving passes ``mean_aux=False``: the reference's compiler
+    drops that unused collective."""
     mo = cfg.moe
     out, aux = _moe_local(p, x.reshape(-1, x.shape[-1]), mo, cfg.act)
-    out = out.reshape(x.shape)
+    out = shd.reduce_from_model(out.reshape(x.shape))
+    if mean_aux:
+        aux = shd.mean_over_batch(aux)
     if mo.num_shared_experts > 0:
         out = out + mlp_apply(p["shared"], x, cfg=cfg)
     return out, aux

@@ -16,7 +16,17 @@ positions, the audio model precomputed frame embeddings
 (``enc_embeds``). The reference stacks each period slot's parameters
 ``(n_periods, ...)`` and runs the depth as one ``lax.scan``; here each
 layer is a block in an ``nn.ModuleList`` walked by a Python loop, and the
-logical-sharding annotations drop out (one card, no mesh). A
+logical-sharding annotations drop out (``launch.sharding.logical`` is the
+identity). Under a bound mesh whose ``model`` axis is larger than 1 the
+model runs tensor parallel on this rank's shards (:func:`tp_param_spec`;
+the layers' part is in ``models.attention`` and ``models.mlp``): the
+embedding is vocab-parallel (each rank looks up the rows in its range,
+zero elsewhere, and the ranks' rows are summed), so are the head (the
+logits of ``forward`` are this rank's vocabulary columns) and both cross
+entropies (:func:`_logits_nll`: the max, the sum of exponentials and the
+target's logit each all-reduced over ``model``, in float32), and the
+prefill's and decode step's logits are gathered whole before they are
+returned, so a greedy argmax sees every column. A
 configuration with ``mtp_depth > 0`` (DeepSeek-V3) carries the
 multi-token-prediction parameters, ``Params.mtp``, as the reference does;
 serving does not use them, its loss does (:func:`_mtp_loss`).
@@ -43,7 +53,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -53,6 +63,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import sharding as shd
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpm
 from repro_torch.models import ssm as ssmm
@@ -156,6 +168,58 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported; the port builds "
             f"the layer kinds {SUPPORTED_KINDS}")
+
+
+# the (mixer, mlp, cross attention) layer kinds with a tensor-parallel
+# path: on a mesh whose 'model' axis is larger than 1 the port runs these
+TP_KINDS = (("gqa", "dense", False), ("gqa", "moe", False))
+
+
+def require_supported(mesh, cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` when ``cfg`` cannot run tensor
+    parallel on ``mesh``: a layer kind outside :data:`TP_KINDS`, an MLP
+    width or the padded vocabulary that the ``model`` axis does not divide
+    (the reference replicates those by ``resolve_spec``'s divisibility
+    fallback; ROADMAP Queue 1 item 11 queues it), or, where it divides the
+    query heads, KV heads that neither divide nor are divided by it
+    (query heads it does not divide run whole on every rank:
+    ``attention.heads_sharded``). Nothing is refused on a mesh whose
+    ``model`` axis is 1."""
+    tp = mesh_lib.model_size(mesh)
+    if tp <= 1:
+        return
+    item = mesh_lib.TP_ITEM
+    kinds = {(k.mixer, k.mlp, k.cross)
+             for k in (_kind(cfg, i) for i in range(cfg.num_layers))}
+    bad = sorted(kinds - set(TP_KINDS))
+    if bad:
+        names = ", ".join(f"{m} mixer + {ml} mlp"
+                          f"{' + cross attention' if c else ''}"
+                          for m, ml, c in bad)
+        raise NotImplementedError(
+            f"{cfg.name}: {names} layers on a mesh whose 'model' axis is "
+            f"{tp}: not ported ({item}; ported: {TP_KINDS})")
+    KV = cfg.padded_kv_heads()
+    widths = {"padded vocabulary": cfg.padded_vocab()}
+    if any(k[1] == "dense" for k in kinds):
+        widths["d_ff"] = cfg.moe.d_ff_dense if (cfg.moe and
+                                                cfg.moe.d_ff_dense) \
+            else cfg.d_ff
+    if cfg.moe is not None:
+        widths["d_ff_expert"] = cfg.moe.d_ff_expert
+        if cfg.moe.num_shared_experts:
+            widths["the shared experts' d_ff"] = \
+                cfg.moe.d_ff_expert * cfg.moe.num_shared_experts
+    for what, n in widths.items():
+        if n % tp:
+            raise NotImplementedError(
+                f"{cfg.name}: {what} {n} on a 'model' axis of {tp}, which "
+                f"does not divide it: the replicated fallback is not "
+                f"ported ({item})")
+    if attn.heads_sharded(cfg, tp) and KV % tp and tp % KV:
+        raise NotImplementedError(
+            f"{cfg.name}: {KV} KV heads on a 'model' axis of {tp}: a rank's "
+            f"query heads would read parts of two KV groups ({item})")
 
 
 # ---------------------------------------------------------------------------
@@ -312,7 +376,8 @@ def block_apply(
         if nc is not None:
             new_cache["mlp"] = nc
     elif kind.mlp == "moe":
-        out, aux = mlpm.moe_apply(p["mlp"], h2, cfg=cfg)
+        out, aux = mlpm.moe_apply(p["mlp"], h2, cfg=cfg,
+                                  mean_aux=mode == "train")
     else:
         out = mlpm.mlp_apply(p["mlp"], h2, cfg=cfg)
     x = x + out
@@ -371,42 +436,72 @@ class Params(nn.Module):
         self.mtp = mtp
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator, *, device=None
-                ) -> Params:
+Keep = Callable[[str, torch.Tensor], torch.Tensor]
+
+
+def _kept(keep: Optional[Keep], prefix: str, part):
+    """``part`` (a tensor, or a module of parameters named under
+    ``prefix``) with each leaf cut by ``keep(name, whole)``; a leaf
+    ``keep`` cuts is copied out, so that its whole is freed."""
+    if keep is None or part is None:
+        return part
+    if isinstance(part, torch.Tensor):
+        t = keep(prefix, part)
+        return t.clone() if t.shape != part.shape else part
+    for name, prm in part.named_parameters(prefix):
+        t = keep(name, prm.data)
+        if t.shape != prm.shape:
+            prm.data = t.clone()
+    return part
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator, *, device=None,
+                keep: Optional[Keep] = None) -> Params:
+    """Seeded parameters, drawn whole in the reference's order. With
+    ``keep(name, whole) -> part`` each leaf is cut to ``part`` as soon as
+    its layer (or the embedding, or the head) is drawn, so a rank of a
+    tensor-parallel mesh holds the same values as one process would, with
+    one layer whole at a time."""
     check_supported(cfg)
     dt = getattr(torch, cfg.param_dtype)
     Vp = cfg.padded_vocab()
     D = cfg.d_model
-    embed = embed_init(gen, Vp, D, dtype=dt, device=device)
+    embed = _kept(keep, "embed", embed_init(gen, Vp, D, dtype=dt,
+                                            device=device))
     pos_embed = None
     if cfg.is_encoder_decoder or (cfg.rope == "none" and cfg.ssm is None):
         # learned absolute positions for rope-free attention stacks
-        pos_embed = trunc_normal(gen, (cfg.max_seq_len, D), std=0.02,
-                                 dtype=dt, device=device)
+        pos_embed = _kept(keep, "pos_embed", trunc_normal(
+            gen, (cfg.max_seq_len, D), std=0.02, dtype=dt, device=device))
     ln0 = None
     if cfg.ssm is not None and cfg.ssm.kind == "rwkv6":
-        ln0 = _norm_init(cfg, True, device=device)
+        ln0 = _kept(keep, "ln0", _norm_init(cfg, True, device=device))
     enc_blocks = enc_norm = None
     if cfg.is_encoder_decoder:
         # the encoder: uniform non-causal GQA blocks
-        enc_blocks = [block_init(gen, cfg, ENC_KIND, device=device)
-                      for _ in range(cfg.num_encoder_layers)]
-        enc_norm = _norm_init(cfg, _uses_ln_bias(cfg), device=device)
-    blocks = [block_init(gen, cfg, _kind(cfg, i), device=device)
+        enc_blocks = [_kept(keep, f"enc_blocks.{i}",
+                            block_init(gen, cfg, ENC_KIND, device=device))
+                      for i in range(cfg.num_encoder_layers)]
+        enc_norm = _kept(keep, "enc_norm",
+                         _norm_init(cfg, _uses_ln_bias(cfg), device=device))
+    blocks = [_kept(keep, f"blocks.{i}",
+                    block_init(gen, cfg, _kind(cfg, i), device=device))
               for i in range(cfg.num_layers)]
-    final_norm = _norm_init(cfg, _uses_ln_bias(cfg), device=device)
+    final_norm = _kept(keep, "final_norm",
+                       _norm_init(cfg, _uses_ln_bias(cfg), device=device))
     lm_head = None
     if not cfg.tie_embeddings:
-        lm_head = dense_init(gen, D, Vp, std=1.0 / math.sqrt(D), dtype=dt,
-                             device=device)
+        lm_head = _kept(keep, "lm_head", dense_init(
+            gen, D, Vp, std=1.0 / math.sqrt(D), dtype=dt, device=device))
     mtp = None
     if cfg.mtp_depth > 0:
-        mtp = MTP(dense_init(gen, 2 * D, D, dtype=dt, device=device),
-                  _norm_init(cfg, False, device=device),
-                  _norm_init(cfg, False, device=device),
-                  block_init(gen, cfg, kind_for_layer(cfg, cfg.num_layers - 1),
-                             device=device),
-                  _norm_init(cfg, False, device=device))
+        mtp = _kept(keep, "mtp", MTP(
+            dense_init(gen, 2 * D, D, dtype=dt, device=device),
+            _norm_init(cfg, False, device=device),
+            _norm_init(cfg, False, device=device),
+            block_init(gen, cfg, kind_for_layer(cfg, cfg.num_layers - 1),
+                       device=device),
+            _norm_init(cfg, False, device=device)))
     return Params(embed, blocks, final_norm, lm_head, ln0, mtp, pos_embed,
                   enc_blocks, enc_norm)
 
@@ -428,7 +523,19 @@ def _embed(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     # the reference's jnp.take; as F.embedding, its gradient sums each
     # row's contributions in float32 on the card and rounds once, where
     # indexing's would round a bfloat16 row after every addition
-    x = torch.nn.functional.embedding(tokens, p.embed).to(dt)
+    tp = shd.model_axis()
+    if tp is None:
+        x = torch.nn.functional.embedding(tokens, p.embed).to(dt)
+    else:
+        # vocab-parallel: this rank's rows, zero where the token is not
+        # in its range, summed over model (one row is non-zero: exact)
+        rows = p.embed.shape[0]
+        local = tokens - tp.index * rows
+        hit = (local >= 0) & (local < rows)
+        e = torch.nn.functional.embedding(local.clamp(0, rows - 1), p.embed)
+        e = torch.where(hit[..., None], e, torch.zeros((), dtype=e.dtype,
+                                                       device=e.device))
+        x = shd.reduce_from_model(e).to(dt)
     if p.pos_embed is not None:
         x = x + p.pos_embed[positions.to(device=x.device,
                                          dtype=torch.long)].to(dt)
@@ -514,13 +621,20 @@ def _run_stack(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
         if context is None:
             x, aux, nc = run(x)
         else:
-            x, aux, nc = checkpoint(run, x, use_reentrant=False,
-                                    context_fn=context)
+            # the recompute runs in the backward: it binds the mesh again
+            x, aux, nc = checkpoint(
+                functools.partial(_under, shd.current(), run), x,
+                use_reentrant=False, context_fn=context)
         if aux is not None:
             aux_total = aux if aux_total is None else aux_total + aux
         new_cache.append(nc)
     return x, aux_total, (new_cache if mode in ("prefill", "decode")
                           else None)
+
+
+def _under(state, fn, *args):
+    with shd.restored(state):
+        return fn(*args)
 
 
 @dataclasses.dataclass
@@ -534,8 +648,10 @@ class Output:
 
 
 def _head(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The logits; under a model axis this rank's vocabulary columns (a
+    tied head is its ``embed`` rows, transposed)."""
     head = p.lm_head if p.lm_head is not None else p.embed.T
-    return x @ head
+    return shd.copy_to_model(x) @ head
 
 
 def _embed_frames(p: Params, cfg: ModelConfig, enc_embeds: torch.Tensor
@@ -619,16 +735,30 @@ def forward(
 def _logits_nll(logits: torch.Tensor, labels: torch.Tensor,
                 vocab_size: int) -> torch.Tensor:
     """Per-position negative log-likelihood in float32, the padded
-    vocabulary's columns masked to -1e30."""
+    vocabulary's columns masked to -1e30. Under a model axis ``logits``
+    are this rank's columns: the largest logit, the sum of exponentials
+    below it and the target's logit are each all-reduced over ``model``
+    (the last two with the identity for backward)."""
     lg = logits.float()
-    Vp = lg.shape[-1]
-    if Vp > vocab_size:
-        pad_mask = torch.arange(Vp, device=lg.device) < vocab_size
+    tp = shd.model_axis()
+    V = lg.shape[-1]
+    lo = 0 if tp is None else tp.index * V
+    if lo + V > vocab_size:
+        pad_mask = lo + torch.arange(V, device=lg.device) < vocab_size
         lg = torch.where(pad_mask, lg, torch.full((), -1e30,
                                                   device=lg.device))
-    lse = torch.logsumexp(lg, -1)
-    tgt = torch.gather(lg, -1, labels[..., None])[..., 0]
-    return lse - tgt
+    if tp is None:
+        lse = torch.logsumexp(lg, -1)
+        tgt = torch.gather(lg, -1, labels[..., None])[..., 0]
+        return lse - tgt
+    m = mesh_lib.all_reduce(lg.detach().amax(-1), tp.group, "max")
+    sum_exp = shd.reduce_from_model(torch.exp(lg - m[..., None]).sum(-1))
+    local = labels - lo
+    hit = (local >= 0) & (local < V)
+    tgt = torch.gather(lg, -1, local.clamp(0, V - 1)[..., None])[..., 0]
+    tgt = shd.reduce_from_model(torch.where(hit, tgt, torch.zeros(
+        (), device=lg.device)))
+    return torch.log(sum_exp) + m - tgt
 
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor,
@@ -731,12 +861,15 @@ def prefill(p: Params, batch: Dict[str, torch.Tensor], *, cfg: ModelConfig,
             ) -> Tuple[torch.Tensor, Cache]:
     """Run the prompt, return (last-token logits (B,Vp), filled cache).
     The logits of every position are computed, as in the reference; only
-    a copy of the last position's outlives the call."""
+    a copy of the last position's outlives the call (gathered over
+    ``model`` under a model axis)."""
     B, S = batch["tokens"].shape
     cache = init_cache(cfg, B, max_len, device=batch["tokens"].device)
     out = forward(p, batch, cfg=cfg, mode="prefill", cache=cache,
                   backend=backend)
-    return out.logits[:, -1].clone(), out.cache
+    last = out.logits[:, -1]
+    return (last.clone() if shd.model_axis() is None
+            else shd.gather_from_model(last)), out.cache
 
 
 def decode_step(
@@ -763,7 +896,7 @@ def decode_step(
         batch["memory"] = memory
     out = forward(p, batch, cfg=cfg, mode="decode", cache=cache, pos0=pos,
                   backend=backend)
-    return out.logits[:, 0], out.cache
+    return shd.gather_from_model(out.logits[:, 0]), out.cache
 
 
 # ---------------------------------------------------------------------------
@@ -849,7 +982,6 @@ def param_spec(params: Dict[str, torch.Tensor], cfg: ModelConfig
     ``None``), then resolved on the port's per-layer shape. The MoE expert
     stacks are the ``w_gate`` / ``w_up`` / ``w_down`` of an mlp with a
     ``router``, as in the reference."""
-    from repro_torch.launch import sharding as shd
     from repro_torch.models.convert import jax_path
     paths = {n: jax_path(n, cfg) for n in params}
     moe_paths = frozenset(path[:-len("router")] for path, _ in paths.values()
@@ -860,3 +992,29 @@ def param_spec(params: Dict[str, torch.Tensor], cfg: ModelConfig
         spec = _leaf_logical_spec(path, p.dim() + stacked, moe_paths)
         out[n] = shd.resolve_spec(p.shape, spec[int(stacked):])
     return out
+
+
+def tp_param_spec(cfg: ModelConfig, mesh) -> Dict[str, Tuple]:
+    """Each parameter's spec on ``mesh`` as the port shards it: the
+    reference's (:func:`param_spec`, on the whole leaves' shapes, drawn
+    on the meta device), except a GQA mixer's leaves that every rank
+    keeps whole: all of them where the ``model`` axis does not divide the
+    query heads (``attention.heads_sharded``), else ``wk`` / ``wv`` /
+    ``bk`` / ``bv`` where it does not divide the KV heads
+    (``attention.kv_sharded``)."""
+    with torch.device("meta"):
+        meta = init_params(cfg, torch.Generator(), device="meta")
+    named = dict(meta.named_parameters())
+    with shd.axis_rules(mesh):
+        spec = param_spec(named, cfg)
+    tp = mesh_lib.model_size(mesh)
+    if tp <= 1:
+        return spec
+    whole = () if attn.kv_sharded(cfg, tp) else ("wk", "wv", "bk", "bv")
+    if not attn.heads_sharded(cfg, tp):
+        whole = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+    for n, t in named.items():
+        parts = n.split(".")
+        if parts[-2:-1] == ["mixer"] and parts[-1] in whole:
+            spec[n] = (None,) * t.dim()
+    return spec

@@ -28,7 +28,15 @@ reference's rule (the moments shard the first unsharded dim that the
 the parameter from the reduced gradient (which every rank holds whole),
 and the slices are all-gathered into the parameter. The global norm for
 clipping is taken over the whole reduced gradients, and the update is
-elementwise, so ZeRO-1 on and off give the same bits. The port's
+elementwise, so ZeRO-1 on and off give the same bits.
+
+Tensor parallelism (a ``model`` axis larger than 1): each rank holds its
+shard of a model-sharded leaf, and ZeRO-1 slices the shard over ``pod x
+data`` on the dim the reference's rule picks on the whole leaf (an
+unsharded dim, whose size the shard keeps). :func:`global_norm` takes
+:class:`ModelShards`: the float32 sum of squares of the sharded leaves is
+all-reduced over ``model`` and each replicated leaf counts once, so the
+norm is the reference's, over the logical arrays. The port's
 per-layer leaves have no period axis, so the dim a stacked leaf shards
 may differ from the reference's choice on it (which may be the period
 axis); the bits do not.
@@ -40,7 +48,6 @@ import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, OptimizerConfig
 from repro_torch.launch import mesh as mesh_lib
@@ -99,11 +106,26 @@ class Zero1:
         d = self.dims[name]
         if d is None:
             return part
-        part = part.contiguous()
-        parts = [torch.empty_like(part) for _ in range(self.size)]
-        dist.all_gather(parts, part, group=self.group)
-        mesh_lib.count("all_gather")
-        return torch.cat(parts, dim=d)
+        return mesh_lib.all_gather(part, self.group, d)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelShards:
+    """The leaves split over the ``model`` axis, and its process group."""
+    names: frozenset
+    group: Any
+
+
+def model_shards(spec: Optional[Dict[str, tuple]], mesh
+                 ) -> Optional[ModelShards]:
+    """The :class:`ModelShards` of parameters with ``spec`` (``Model.spec``)
+    on ``mesh``; ``None`` when its ``model`` axis is 1."""
+    if mesh is None or mesh_lib.model_size(mesh) <= 1:
+        return None
+    names = frozenset(n for n, sp in spec.items()
+                      if any(e == "model" or (isinstance(e, tuple)
+                                              and "model" in e) for e in sp))
+    return ModelShards(names, mesh_lib.axes_group(mesh, ("model",)))
 
 
 def opt_state_spec(cfg: OptimizerConfig, params: Tree,
@@ -140,14 +162,15 @@ def opt_state_spec(cfg: OptimizerConfig, params: Tree,
 
 def zero1_layout(cfg: OptimizerConfig, params: Tree, model_cfg: ModelConfig,
                  mesh) -> Optional[Zero1]:
-    """The :class:`Zero1` layout of ``params`` on ``mesh`` (``None`` when
-    ``cfg.zero1`` is off): the dim :func:`opt_state_spec` shards for each
-    leaf, under the mesh's rules."""
+    """The :class:`Zero1` layout of ``params`` (this rank's shards) on
+    ``mesh`` (``None`` when ``cfg.zero1`` is off): the dim
+    :func:`opt_state_spec` shards for each leaf, under the mesh's rules,
+    from the specs of the whole leaves (``transformer.tp_param_spec``)."""
     if not cfg.zero1:
         return None
-    from repro_torch.models.transformer import param_spec
+    from repro_torch.models.transformer import tp_param_spec
+    pspec = tp_param_spec(model_cfg, mesh)
     with shd.axis_rules(mesh):
-        pspec = param_spec(params, model_cfg)
         ospec = opt_state_spec(cfg, params, pspec)
     dims = {}
     for n, p in params.items():
@@ -175,10 +198,23 @@ def init_opt_state(cfg: OptimizerConfig, params: Tree,
                     mu=zeros(), nu=zeros())
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
-    leaves = [torch.sum(torch.square(x.float())) for x in tree.values()]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+def global_norm(tree: Tree, shards: Optional[ModelShards] = None
+                ) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares;
+    with ``shards``, the sharded leaves' sum all-reduced over ``model``
+    first."""
+    ss = {n: torch.sum(torch.square(x.float())) for n, x in tree.items()}
+    if shards is None:
+        return torch.sqrt(torch.sum(torch.stack(list(ss.values()))))
+    dev = next(iter(tree.values())).device
+    part = [v for n, v in ss.items() if n in shards.names]
+    whole = [v for n, v in ss.items() if n not in shards.names]
+    total = torch.sum(torch.stack(part)) if part else \
+        torch.zeros((), device=dev)
+    mesh_lib.all_reduce(total, shards.group)
+    if whole:
+        total = total + torch.sum(torch.stack(whole))
+    return torch.sqrt(total)
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -222,16 +258,18 @@ def decay_mask(cfg: ModelConfig, params: Tree) -> Dict[str, float]:
 @torch.no_grad()
 def adamw_update(cfg: OptimizerConfig, params: Tree, grads: Tree,
                  state: OptState, decay: Dict[str, float],
-                 zero: Optional[Zero1] = None
+                 zero: Optional[Zero1] = None,
+                 shards: Optional[ModelShards] = None
                  ) -> Tuple[Tree, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step, in place: the gradients clipped by their global
     norm, the step counted, ``cosine_lr`` at the new step, the bias
     corrections, then each leaf's moments and parameter written where
     they are. ``decay`` is :func:`decay_mask`'s. Under ``zero`` (the
     moments' ZeRO-1 layout) a sharded leaf's slice is updated and the
-    slices gathered into the parameter. Returns (params, the new state,
-    {"grad_norm", "lr"})."""
-    gnorm = global_norm(grads)
+    slices gathered into the parameter; under ``shards`` the global norm
+    is taken over the whole leaves (:func:`global_norm`). Returns (params,
+    the new state, {"grad_norm", "lr"})."""
+    gnorm = global_norm(grads, shards)
     scale = _clip_scale(gnorm, cfg.grad_clip)
     step = state.step + 1
     lr = cosine_lr(cfg, step)

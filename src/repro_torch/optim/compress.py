@@ -29,8 +29,11 @@ the "all-reduced" gradient depends on the rank; the port reproduces each
 rank's result and does not make them agree.
 
 Collectives take a process group: NCCL on the card, ``gloo`` on the CPU.
-A CUDA tensor handed to a ``gloo`` group raises ``ValueError``; it is not
-copied through the host.
+The int8 ring refuses a CUDA tensor on a ``gloo`` group (``ValueError``);
+it is not copied through the host. The full-precision mean
+(:func:`mean_over`) takes one, and gloo stages it through host memory
+itself, as it does the tensor-parallel all-reduces of ranks that share
+one card.
 """
 from __future__ import annotations
 
@@ -128,10 +131,7 @@ def _int8_ring_all_reduce(x: torch.Tensor, group) -> torch.Tensor:
 def mean_over(x: torch.Tensor, group, size: int) -> torch.Tensor:
     """All-reduce sum over ``group``, then a division by its size as a
     tensor (the reference's ``pmean``)."""
-    _check_group(x, group)
-    x = x.clone()
-    dist.all_reduce(x, group=group)
-    mesh_lib.count("all_reduce")
+    x = mesh_lib.all_reduce(x.clone(), group)
     return x / torch.full((), float(size), dtype=torch.float32,
                           device=x.device)
 

@@ -14,7 +14,8 @@ set before it imports jax, never in the pytest process), the ranks'
 results differing as the reference's do, each rank's wire bytes counted
 (``(n - 1) x (N_pad + 4 N_pad / 256)``), and ``hierarchical_grad_reduce``
 on a ``(pod 2, data 2)`` mesh with ``compress="int8"`` and ``"none"``;
-a CUDA tensor refused by a ``gloo`` group.
+a CUDA tensor refused by the ring on a ``gloo`` group; the ring and
+``mean_over`` over one rank the identity.
 """
 import json
 import os
@@ -397,13 +398,13 @@ def test_torch_ring_refuses_a_cuda_tensor_on_a_gloo_group(tmp_path):
                             world_size=1, rank=0)
     try:
         fake = types.SimpleNamespace(is_cuda=True)
-        for fn in (lambda: C._int8_ring_all_reduce(fake, dist.group.WORLD),
-                   lambda: C.mean_over(fake, dist.group.WORLD, 1)):
-            with pytest.raises(ValueError, match="CUDA tensor .* gloo"):
-                fn()
-        # world size 1: the ring is the identity, exactly
+        with pytest.raises(ValueError, match="CUDA tensor .* gloo"):
+            C._int8_ring_all_reduce(fake, dist.group.WORLD)
+        # world size 1: the ring and the full-precision mean (which takes a
+        # CUDA tensor on a gloo group, staged by gloo) are the identity
         x = torch.randn(300)
         assert torch.equal(C._int8_ring_all_reduce(x, dist.group.WORLD), x)
+        assert torch.equal(C.mean_over(x, dist.group.WORLD, 1), x)
     finally:
         dist.destroy_process_group()
 

@@ -1045,3 +1045,70 @@ def test_torch_cuda_world1_nccl_mesh_step_is_the_plain_step(card, tmp_path):
             out[0][0].params.parameters(), out[1][0].params.parameters()))
     finally:
         dist.destroy_process_group()
+
+
+_TP_CHILD = r'''
+import sys, torch, torch.distributed as dist
+from repro_torch.configs import get_model_config
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models.api import build_model
+rank, rdv, dtype, out = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"file://{rdv}", world_size=2,
+                        rank=rank)
+try:
+    mesh = mesh_lib.make_local_mesh(2, device_type="cuda")
+    cfg = get_model_config("qwen2-7b", smoke=True).replace(
+        dtype=dtype, param_dtype=dtype)
+    model = build_model(cfg, mesh=mesh)
+    model.init(0)
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 64), generator=g).cuda()
+    with torch.inference_mode():
+        mesh_lib.reset_collective_counts()
+        logits, _ = model.prefill({"tokens": tokens}, 72)
+        counts = mesh_lib.collective_counts()
+    if rank == 0:
+        torch.save({"logits": logits.float().cpu(), "counts": counts}, out)
+finally:
+    dist.destroy_process_group()
+'''
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_torch_cuda_smoke_tp_prefill_in_two_processes(card, tmp_path, dtype):
+    """The smoke Qwen2's prefill over a (data 1, model 2) mesh of two
+    processes sharing the card (gloo; K4 and K5 on the card at a rank's
+    heads) against one process on the card: float32 within 1e-4 of the
+    largest logit and the first tokens equal, bfloat16 within 2e-2; one
+    all-reduce for the embedding, two a layer, one all-gather."""
+    import os
+    import subprocess
+    import sys
+    from repro_torch.configs import get_model_config
+    from repro_torch.models.api import build_model
+    out = tmp_path / "out.pt"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(p) for p in sys.path if p]))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _TP_CHILD, str(r), str(tmp_path / "rdv"),
+         dtype, str(out)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), logs[0][-3000:]
+    got = torch.load(out)
+    cfg = get_model_config("qwen2-7b", smoke=True).replace(
+        dtype=dtype, param_dtype=dtype)
+    model = build_model(cfg)
+    model.init(0)
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 64), generator=g).cuda()
+    with torch.inference_mode():
+        want, _ = model.prefill({"tokens": tokens}, 72)
+    want = want.float().cpu()
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    assert (got["logits"] - want).abs().max() <= tol * want.abs().max()
+    if dtype == "float32":
+        assert torch.equal(got["logits"].argmax(-1), want.argmax(-1))
+    L = cfg.num_layers
+    assert got["counts"] == {"all_reduce": 1 + 2 * L, "all_gather": 1}

@@ -15,8 +15,10 @@ per-layer leaf (``opt_state_spec`` of a one-leaf tree). Also: the MoE
 expert-stack rule, ``logical``'s rank check, ``named_sharding``'s
 placements, ``batch_axes`` / ``dp_size`` / ``mesh_config_for``,
 ``make_local_mesh()`` refusing to run without a process group, a
-``model`` axis larger than 1 refused, ``sample_locality`` with and
-without a group, and a one-rank ``gloo`` mesh.
+``model`` axis larger than 1 refused for a layer kind with no
+tensor-parallel path, ``sample_locality`` with and
+without a group, a one-rank ``gloo`` mesh, and the collectives counted
+and, when asked, timed.
 """
 import types
 
@@ -177,15 +179,17 @@ def test_torch_make_local_mesh_without_a_group_raises():
 
 
 def test_torch_a_model_axis_larger_than_1_is_refused():
+    """A layer kind without a tensor-parallel path (RWKV-6's) on a mesh
+    whose ``model`` axis is 2, and the compressed step for any model."""
     from repro_torch.launch.compressed import make_compressed_train_step
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.api import build_model
-    m = build_model(tconfigs.get_model_config("qwen2-7b", smoke=True),
-                    device="cpu")
+    cfg = tconfigs.get_model_config("rwkv6-3b", smoke=True)
+    m = build_model(cfg, device="cpu")
     m.init(0)
     m.requires_grad_(True)
     tp = stand_in((2, 2, 2), ("pod", "data", "model"))
-    for fn in (lambda: mesh_lib.require_data_parallel(tp),
+    for fn in (lambda: tfm.require_supported(tp, cfg),
                lambda: make_train_step(m, tconfigs.OptimizerConfig(),
                                        backend="torch", mesh=tp),
                lambda: make_compressed_train_step(
@@ -217,5 +221,35 @@ def test_torch_sample_locality(tmp_path):
         assert mesh_lib.axes_group(mesh, ("data",)) is not None
         assert mesh_lib.mesh_config_for(mesh) == tconfigs.base.MeshConfig(
             (1, 1), ("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_torch_collectives_are_counted_and_timed_when_asked(tmp_path):
+    """``all_reduce`` (sum and max) and ``all_gather`` over a one-rank
+    ``gloo`` group: their results, their counts, and the host's time in
+    them only while ``time_collectives`` is on."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            world_size=1, rank=0)
+    try:
+        group = dist.group.WORLD
+        x = torch.arange(6.0).reshape(2, 3)
+        mesh_lib.reset_collective_counts()
+        mesh_lib.time_collectives(True)
+        try:
+            assert torch.equal(mesh_lib.all_reduce(x.clone(), group), x)
+            assert torch.equal(mesh_lib.all_reduce(x.clone(), group, "max"),
+                               x)
+            assert torch.equal(mesh_lib.all_gather(x, group, 1), x)
+        finally:
+            mesh_lib.time_collectives(False)
+        timed = mesh_lib.collective_seconds()
+        assert timed > 0
+        assert mesh_lib.collective_counts() == {"all_reduce": 2,
+                                                "all_gather": 1}
+        mesh_lib.all_reduce(x.clone(), group)
+        assert mesh_lib.collective_seconds() == timed
+        assert mesh_lib.collective_counts()["all_reduce"] == 3
     finally:
         dist.destroy_process_group()

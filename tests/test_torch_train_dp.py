@@ -17,7 +17,8 @@ rank's parameters the same; microbatches 2 against 1 (1e-5 / 1e-4) and
 the ZeRO-1 accumulator's slice giving the same bits as the whole one;
 ``train(mesh=, ckpt_dir=, ckpt_every=)`` saving whole leaves from rank 0
 that restore bit-equal at world size 1 (no mesh) and, cut to a rank's
-slice, at world size 4; a ``model`` axis of 2 refused. At world size 4:
+slice, at world size 4; a ``model`` axis of 2 refused for RWKV-6, which
+has no tensor-parallel path. At world size 4:
 the compressed step (int8 ring over ``pod``) against the reference's
 ``make_compressed_train_step``, run on a mesh whose axes are
 ``AxisType.Auto`` (on the default ``Explicit`` axes its sharding
@@ -125,7 +126,9 @@ def _save(path, tensors):
 
 def _world2(rank, rdv, out):
     import torch.distributed as dist
+    from repro_torch import configs
     from repro_torch.configs import OptimizerConfig
+    from repro_torch.models.api import build_model
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import train
@@ -152,8 +155,13 @@ def _world2(rank, rdv, out):
                   ckpt_every=CKPT_STEP)
         res["train_losses"] = r.losses
         tp = mesh_lib.make_local_mesh(model_parallel=2, device_type="cpu")
+        # RWKV-6 has no tensor-parallel path (its refusal stands)
+        rwkv = build_model(configs.get_model_config("rwkv6-3b", smoke=True),
+                           device="cpu")
+        rwkv.init(SEED)
+        rwkv.requires_grad_(True)
         try:
-            make_train_step(_model(), OptimizerConfig(), backend="torch",
+            make_train_step(rwkv, OptimizerConfig(), backend="torch",
                             mesh=tp)
             res["tp_refused"] = ""
         except NotImplementedError as e:

@@ -22,7 +22,8 @@ description, which no code of the port places tensors by.
 Tensor parallelism (a ``model`` axis larger than 1) is done by hand, in
 the Megatron manner, with explicit shards and explicit collectives:
 :func:`shard_of` / :func:`gather_full` cut a whole leaf to this rank's
-shard by its resolved spec and make it whole again; :func:`model_axis` is
+shard by its resolved spec and make it whole again (a :class:`Halves`
+entry cuts each half of a dim); :func:`model_axis` is
 the bound mesh's ``model`` axis (its size, this rank's index, its group),
 which the layers read; :func:`copy_to_model` (the identity, whose
 backward all-reduces over ``model``) enters a column-parallel region,
@@ -120,11 +121,12 @@ def manual_axes() -> FrozenSet[str]:
 
 
 def runs_whole(width: int):
-    """A context for a layer of ``width`` (its query heads) that the
-    ``model`` axis does not divide: the reference's divisibility fallback
-    replicates it, so the layer runs whole on every rank of ``model``,
-    :func:`model_axis` ``None`` inside (no shard, no collective). Nothing
-    is bound where the axis divides ``width`` or there is none."""
+    """A context for a mixer of ``width`` (its query heads, or Mamba's
+    inner channels) that the ``model`` axis does not divide: the
+    reference's divisibility fallback replicates it, so the mixer runs
+    whole on every rank of ``model``, :func:`model_axis` ``None`` inside
+    (no shard, no collective). Nothing is bound where the axis divides
+    ``width`` or there is none."""
     tp = model_axis()
     if tp is None or width % tp.size == 0:
         return contextlib.nullcontext()
@@ -311,6 +313,27 @@ def copy_to_model(x: torch.Tensor) -> torch.Tensor:
     return _CopyToModel.apply(x, tp.group)
 
 
+def local_size(width: int) -> int:
+    """This rank's share of ``width`` heads or channels that the
+    ``model`` axis cuts: ``width / tp``, or ``width`` without a model axis
+    (and inside :func:`runs_whole`)."""
+    tp = model_axis()
+    return width if tp is None else width // tp.size
+
+
+def local_part(w: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """This rank's piece along ``dim`` of ``w``, a leaf (or activation)
+    that every rank of ``model`` keeps whole but reads only at its own
+    heads or channels: entered through :func:`copy_to_model`, so that its
+    gradient, each rank's at its own piece, is summed over ``model``.
+    ``w`` itself without a model axis."""
+    tp = model_axis()
+    if tp is None:
+        return w
+    k = w.shape[dim] // tp.size
+    return copy_to_model(w).narrow(dim, tp.index * k, k)
+
+
 def reduce_from_model(x: torch.Tensor, dtype: Optional[torch.dtype] = None
                       ) -> torch.Tensor:
     """Leave a row-parallel region: the sum of the ranks' partial ``x``
@@ -377,10 +400,21 @@ def tp_row_matmul(h: torch.Tensor, w: torch.Tensor, shard_name: str = "ff"
     return reduce_from_model(out, out.dtype if bf16 else torch.float32)
 
 
+class Halves(str):
+    """A spec entry for a dim made of two equal halves, each cut over the
+    mesh axis it names: a rank holds its piece of the first half and its
+    piece of the second, side by side (Mamba's ``in_proj`` columns
+    ``[x | z]``, so that a rank's product splits into its own channels of
+    ``x`` and of ``z``). It is the axis name (``Halves("model") ==
+    "model"``) to every reader but :func:`shard_of` and
+    :func:`gather_full`."""
+
+
 def shard_of(full: torch.Tensor, spec: Sequence, mesh=None) -> torch.Tensor:
     """This rank's slice of the whole leaf ``full`` under its resolved
-    ``spec`` (a view): each sharded dim cut into the product of its axes'
-    sizes, the piece at this rank's flat coordinate on them."""
+    ``spec`` (a view, but for a :class:`Halves` dim): each sharded dim cut
+    into the product of its axes' sizes, the piece at this rank's flat
+    coordinate on them (of each half, for a :class:`Halves` dim)."""
     mesh = mesh if mesh is not None else _ctx.mesh
     shape = mesh_shape(mesh)
     out = full
@@ -391,8 +425,14 @@ def shard_of(full: torch.Tensor, spec: Sequence, mesh=None) -> torch.Tensor:
         n = 1
         for a in axes:
             n *= shape[a]
+        at = mesh_lib.coordinate(mesh, axes)
+        if isinstance(e, Halves):
+            k = full.shape[d] // (2 * n)
+            out = torch.cat([h.narrow(d, at * k, k)
+                             for h in out.chunk(2, d)], d)
+            continue
         k = full.shape[d] // n
-        out = out.narrow(d, mesh_lib.coordinate(mesh, axes) * k, k)
+        out = out.narrow(d, at * k, k)
     return out
 
 
@@ -400,12 +440,18 @@ def gather_full(local: torch.Tensor, spec: Sequence, mesh=None
                 ) -> torch.Tensor:
     """The whole leaf from every rank's :func:`shard_of` slice: an
     all-gather over each sharded dim's axes (every rank of those axes
-    joins)."""
+    joins), a :class:`Halves` dim's pieces put back in their halves."""
     mesh = mesh if mesh is not None else _ctx.mesh
     out = local.detach()
     for d, e in enumerate(spec):
         if e is None:
             continue
         axes = (e,) if isinstance(e, str) else tuple(e)
+        pieces = out.shape[d]
         out = mesh_lib.all_gather(out, mesh_lib.axes_group(mesh, axes), d)
+        if isinstance(e, Halves):
+            parts = out.split(pieces, d)
+            out = torch.cat([p.narrow(d, 0, pieces // 2) for p in parts] +
+                            [p.narrow(d, pieces // 2, pieces // 2)
+                             for p in parts], d)
     return out

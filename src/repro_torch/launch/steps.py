@@ -23,8 +23,8 @@ the state with ``init_opt_state(cfg, params, step.zero)``).
 
 A ``model`` axis larger than 1 is tensor parallelism: the model must be
 built on the same mesh (``build_model(cfg, mesh=)``: it holds this rank's
-shards and runs its layers tensor parallel), and a layer kind without a
-tensor-parallel path is refused (``models.transformer.require_supported``). A sharded
+shards and runs its layers tensor parallel), and what it cannot split is
+refused (``models.transformer.require_supported``). A sharded
 leaf's gradient is this rank's shard's, and a replicated leaf's (a norm's,
 the router's) comes out equal on every model rank, so both are reduced
 over the batch axes only; the global norm for clipping sums the sharded

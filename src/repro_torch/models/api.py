@@ -21,8 +21,9 @@ come with its port.
 binds it (``launch.sharding.axis_rules``) for its call. On a mesh whose
 ``model`` axis is larger than 1 the model holds only this rank's shard
 of each parameter, as :attr:`Model.spec` gives it
-(``transformer.tp_param_spec``), and runs tensor parallel; a layer kind
-that has no tensor-parallel path is refused when the model is built
+(``transformer.tp_param_spec``), and runs tensor parallel (every layer
+kind has a tensor-parallel path); an MLP width or a padded vocabulary
+that the axis does not divide is refused when the model is built
 (``transformer.require_supported``).
 """
 from __future__ import annotations
@@ -53,6 +54,8 @@ class Model(nn.Module):
         # each parameter's spec on the mesh (None without one)
         self.spec: Optional[Dict[str, Tuple]] = None if mesh is None \
             else tfm.tp_param_spec(cfg, mesh)
+        self.shapes: Optional[Dict[str, Tuple[int, ...]]] = None \
+            if mesh is None else tfm.param_shapes(cfg)
         self.params: Optional[tfm.Params] = None
 
     # -- construction ------------------------------------------------------
@@ -69,8 +72,9 @@ class Model(nn.Module):
 
     def shard(self, name: str, whole: torch.Tensor) -> torch.Tensor:
         """This rank's shard of parameter ``name`` from its whole value
-        (a view; the value itself without a mesh)."""
-        if self.mesh is None:
+        (a view; the value itself without a mesh, or where its shape is
+        no longer the whole's: it was cut as it was drawn)."""
+        if self.mesh is None or tuple(whole.shape) != self.shapes[name]:
             return whole
         return shd.shard_of(whole, self.spec[name], self.mesh)
 
@@ -120,9 +124,7 @@ class Model(nn.Module):
     def loss(self, batch: Dict[str, torch.Tensor], *, backend: str = "cuda"
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(loss, metrics) of the batch (tokens (B, S+1)):
-        :func:`repro_torch.models.transformer.loss_fn`. Raises
-        ``NotImplementedError`` for a configuration with RWKV-6 or Mamba
-        layers."""
+        :func:`repro_torch.models.transformer.loss_fn`."""
         with self.bound():
             return tfm.loss_fn(self._p(), batch, cfg=self.cfg,
                                backend=backend)
@@ -153,6 +155,7 @@ def build_model(cfg: ModelConfig, *, device=None, mesh=None) -> Model:
     """Raises ``NotImplementedError`` for a configuration with a layer kind
     the port does not build (every configuration of the registry has only
     built kinds), or, on a ``mesh`` whose ``model`` axis is larger than 1,
-    one with no tensor-parallel path; ``RuntimeError`` for
+    one with an MLP width or a padded vocabulary that the axis does not
+    divide; ``RuntimeError`` for
     ``device=None`` without a card."""
     return Model(cfg, device=device, mesh=mesh)

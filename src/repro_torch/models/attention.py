@@ -33,8 +33,17 @@ holds only the local KV heads, and ``wo`` is a row-parallel product
 (:func:`heads_sharded`; Qwen2-7B's 28 at ``model`` 16) every rank holds
 the whole attention and runs it whole, with no collective
 (``launch.sharding.runs_whole``): the reference's divisibility fallback,
-"replicated attention compute when heads % 16 != 0". MLA and cross
-attention have no tensor-parallel path yet.
+"replicated attention compute when heads % 16 != 0". Cross attention
+runs the same way, its queries from the decoder's states and its keys
+and values from the encoder's memory, both entered with
+``copy_to_model``. MLA shards ``wq_b`` (or ``wq``) and ``wkv_b`` on
+heads and runs ``wo`` row-parallel; ``wq_a``, ``wkv_a``, ``q_norm``,
+``kv_norm`` and the latent cache (``c``, ``kr``) stay whole on every rank,
+as the reference's specs leave them, every rank writing the same cache.
+The latent reaches a rank's heads through ``copy_to_model`` (the normed
+q latent, ``c`` and ``kr``), not ``x``, so that the gradients of the
+whole leaves before it are summed over ``model``; train, prefill and
+the absorbed decode run at the local heads.
 """
 from __future__ import annotations
 
@@ -262,7 +271,15 @@ def cross_init(gen: torch.Generator, cfg: ModelConfig, *, device=None
     return gqa_init(gen, cfg, device=device)
 
 
-def cross_apply(
+def cross_apply(p: nn.ParameterDict, x: torch.Tensor, memory: torch.Tensor,
+                *, cfg: ModelConfig, backend: str = "cuda") -> torch.Tensor:
+    """Cross attention (:func:`_cross_apply`), run whole on every rank
+    where the ``model`` axis does not divide the query heads."""
+    with shd.runs_whole(cfg.padded_heads()):
+        return _cross_apply(p, x, memory, cfg=cfg, backend=backend)
+
+
+def _cross_apply(
     p: nn.ParameterDict,
     x: torch.Tensor,               # (B, S_dec, D) decoder states
     memory: torch.Tensor,          # (B, S_enc, D) encoder output
@@ -273,23 +290,31 @@ def cross_apply(
     """Full (non-causal) attention of the decoder's queries over the
     encoder's memory, no rope (K4 on ``backend="cuda"``, at S_dec = 1 in a
     decode step too). K and V are computed from ``memory`` on every call:
-    there is no cross-attention cache, as in the reference."""
+    there is no cross-attention cache, as in the reference. Tensor
+    parallel as GQA (:func:`_gqa_apply`): this rank's heads, ``x`` and
+    ``memory`` entered with ``copy_to_model``, ``wo`` row-parallel."""
     B, S, D = x.shape
     Sm = memory.shape[1]
-    H = cfg.padded_heads()
-    KV = cfg.padded_kv_heads()
+    H, KV, kv0 = local_heads(cfg, shd.model_axis())
     Dh = cfg.resolved_head_dim()
+    kv = {n: p[n] for n in (("wk", "wv", "bk", "bv") if cfg.qkv_bias
+                            else ("wk", "wv"))}
+    if kv0 is not None:
+        cols = slice(kv0 * Dh, (kv0 + KV) * Dh)
+        kv = {n: shd.copy_to_model(w)[..., cols] for n, w in kv.items()}
+    x = shd.copy_to_model(x)
+    memory = shd.copy_to_model(memory)
     q = x @ p["wq"]
-    k = memory @ p["wk"]
-    v = memory @ p["wv"]
+    k = memory @ kv["wk"]
+    v = memory @ kv["wv"]
     if cfg.qkv_bias:
         q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+        k = k + kv["bk"]
+        v = v + kv["bv"]
     out = ops.attention(q.reshape(B, S, H, Dh), k.reshape(B, Sm, KV, Dh),
                         v.reshape(B, Sm, KV, Dh), causal=False,
                         backend=backend)
-    return out.reshape(B, S, H * Dh) @ p["wo"]
+    return shd.tp_row_matmul(out.reshape(B, S, H * Dh), p["wo"], "heads")
 
 
 # ---------------------------------------------------------------------------
@@ -334,14 +359,17 @@ def mla_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
 
 
 def _mla_q(p, x, cfg: ModelConfig, positions, B, S, *, backend: str):
+    """(q_nope, q_rope) at this rank's heads; the normed latent (or ``x``
+    without ``q_lora_rank``) entered with ``copy_to_model``."""
     m = cfg.mla
-    H = cfg.padded_heads()
+    H = shd.local_size(cfg.padded_heads())
     dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
     if m.q_lora_rank > 0:
-        q = ops.rmsnorm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps,
-                        backend=backend) @ p["wq_b"]
+        q = shd.copy_to_model(ops.rmsnorm(
+            x @ p["wq_a"], p["q_norm"], cfg.norm_eps,
+            backend=backend)) @ p["wq_b"]
     else:
-        q = x @ p["wq"]
+        q = shd.copy_to_model(x) @ p["wq"]
     q = q.reshape(B, S, H, dn + dr)
     qn, qr = q[..., :dn], q[..., dn:]
     if cfg.rope != "none":
@@ -372,7 +400,15 @@ def _write_at(cache_t: torch.Tensor, new: torch.Tensor,
     cache_t[:, start:start + new.shape[1]] = new.to(cache_t.dtype)
 
 
-def mla_apply(
+def mla_apply(p: nn.ParameterDict, x: torch.Tensor, *, cfg: ModelConfig,
+              **kw) -> Tuple[torch.Tensor, Cache]:
+    """MLA (:func:`_mla_apply`, whose keywords it takes), run whole on
+    every rank where the ``model`` axis does not divide the heads."""
+    with shd.runs_whole(cfg.padded_heads()):
+        return _mla_apply(p, x, cfg=cfg, **kw)
+
+
+def _mla_apply(
     p: nn.ParameterDict,
     x: torch.Tensor,               # (B, S, D)
     *,
@@ -392,10 +428,12 @@ def mla_apply(
     and only there. Decode is the absorbed form, in float32 as the
     reference computes it: q_nope through W_uk into the latent space,
     scores against the cached latent plus the rope part, the ``kv_len``
-    mask, softmax, the latent output through W_uv, then the cast back."""
+    mask, softmax, the latent output through W_uv, then the cast back.
+    Every step runs at this rank's heads (``shd.local_size``), ``wo``
+    row-parallel; the latent cache is whole on every rank."""
     m = cfg.mla
     B, S, D = x.shape
-    H = cfg.padded_heads()
+    H = shd.local_size(cfg.padded_heads())
     dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
     scale = (dn + dr) ** -0.5
 
@@ -403,9 +441,10 @@ def mla_apply(
 
     if mode in ("train", "prefill"):
         c, kr = _mla_ckv(p, x, cfg, positions, B, S, backend=backend)
-        kv = (c @ p["wkv_b"]).reshape(B, S, H, dn + dv)
+        kv = (shd.copy_to_model(c) @ p["wkv_b"]).reshape(B, S, H, dn + dv)
         kn, v = kv[..., :dn], kv[..., dn:]
-        k = torch.cat([kn, kr[:, :, None, :].expand(B, S, H, dr)], -1)
+        krh = shd.copy_to_model(kr)[:, :, None, :].expand(B, S, H, dr)
+        k = torch.cat([kn, krh], -1)
         q = torch.cat([qn, qr], -1)
         out = ops.attention(q, k, v, causal=causal, scale=scale,
                             backend=backend)
@@ -448,4 +487,4 @@ def mla_apply(
         raise ValueError(mode)
 
     out = out.reshape(B, S, H * dv)
-    return out @ p["wo"], new_cache
+    return shd.tp_row_matmul(out, p["wo"], "heads"), new_cache

@@ -23,8 +23,9 @@ host: one synchronisation per MoE layer.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -84,8 +85,12 @@ def mlp_apply(p: nn.ParameterDict, x: torch.Tensor, *, cfg: ModelConfig
 # ---------------------------------------------------------------------------
 
 
-def moe_init(gen: torch.Generator, cfg: ModelConfig, *, device=None
+def moe_init(gen: torch.Generator, cfg: ModelConfig, *, device=None,
+             cut: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
              ) -> nn.ParameterDict:
+    """With ``cut(name, whole)`` each expert stack keeps only its cut
+    part, taken from the float32 draw before the cast (a rank of a
+    tensor-parallel mesh never holds a whole stack in ``param_dtype``)."""
     mo = cfg.moe
     D = cfg.d_model
     E = mo.num_experts
@@ -93,16 +98,18 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, *, device=None
     kw = dict(dtype=getattr(torch, cfg.param_dtype), device=device)
     out_std = 1.0 / math.sqrt(2 * cfg.num_layers * Fd)
 
-    def expert_stack(d_in, d_out, std):
-        return trunc_normal(gen, (E, d_in, d_out), std=std, **kw)
+    def expert_stack(name, d_in, d_out, std):
+        return trunc_normal(gen, (E, d_in, d_out), std=std,
+                            cut=None if cut is None else
+                            functools.partial(cut, name), **kw)
 
     p = {
         # float32 whatever param_dtype is, as in the reference
         "router": dense_init(gen, D, E, std=0.02, dtype=torch.float32,
                              device=device),
-        "w_gate": expert_stack(D, Fd, 1.0 / math.sqrt(D)),
-        "w_up": expert_stack(D, Fd, 1.0 / math.sqrt(D)),
-        "w_down": expert_stack(Fd, D, out_std),
+        "w_gate": expert_stack("w_gate", D, Fd, 1.0 / math.sqrt(D)),
+        "w_up": expert_stack("w_up", D, Fd, 1.0 / math.sqrt(D)),
+        "w_down": expert_stack("w_down", Fd, D, out_std),
     }
     if mo.router == "sigmoid":
         p["router_bias"] = zeros((E,), dtype=torch.float32, device=device)

@@ -11,19 +11,27 @@ a time, so a 7B model never holds all its parameters in float32 at once.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
 
 
 def trunc_normal(gen: torch.Generator, shape: Sequence[int], std=0.02,
-                 dtype=torch.bfloat16, device=None) -> torch.Tensor:
+                 dtype=torch.bfloat16, device=None,
+                 cut: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                 ) -> torch.Tensor:
     """``truncated_normal(-2, 2) * std``: the bounds are in units of the
-    standard normal, as ``jax.random.truncated_normal`` takes them."""
+    standard normal, as ``jax.random.truncated_normal`` takes them. With
+    ``cut`` only a copy of ``cut(whole)`` is kept, in ``dtype`` (the same
+    values; neither the float32 draw nor a whole copy in ``dtype``
+    outlives the call, where a float32 view would keep the draw)."""
     x = torch.empty(tuple(shape), dtype=torch.float32, device=device)
     nn.init.trunc_normal_(x, mean=0.0, std=1.0, a=-2.0, b=2.0, generator=gen)
-    return x.mul_(std).to(dtype)
+    x.mul_(std)
+    if cut is None:
+        return x.to(dtype)
+    return cut(x).to(dtype, copy=True)
 
 
 def dense_init(gen, d_in, d_out, *, std: Optional[float] = None,

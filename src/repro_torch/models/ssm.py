@@ -6,7 +6,30 @@ convolution plumbing, and decode-state management. The recurrences
 themselves are in :mod:`repro_torch.kernels.ops` (K6 and K7 on
 ``backend="cuda"`` for a prefill, the plain recurrences on ``"torch"``; the
 single-token decode steps are torch ops on both, as they are XLA in the
-reference). The logical-sharding annotations drop out (one card, no mesh).
+reference). The logical-sharding annotations drop out: a rank holds its
+shards and runs its part by hand.
+
+Under a bound mesh whose ``model`` axis is larger than 1
+(``launch.sharding.model_axis``) the mixers run tensor parallel, in the
+Megatron manner. RWKV-6's time mix computes the ddlerp and the decay's
+low-rank ``tanh(xw @ decay_a)`` whole on every rank, then runs this
+rank's heads: ``wr`` / ``wk`` / ``wv`` / ``wg`` column-parallel, each
+entered with ``copy_to_model`` on its mixed input; ``w0``, ``decay_b``'s
+columns, ``u``, ``gn_scale`` and ``gn_bias``, which every rank keeps
+whole (the reference's specs leave them so), read at the local heads
+through ``shd.local_part``; the group norm and K6 per local head; ``wo``
+row-parallel; the cache's ``state`` at the local heads, ``last_x``
+whole. The channel mix is column-parallel in ``wk`` and row-parallel in
+``wv`` on ``d_ff``, ``wr`` whole. Mamba cuts its inner channels: each
+half of ``in_proj`` (``x`` and ``z``) at this rank's ``Din / tp``
+channels (``launch.sharding.Halves``), ``conv_*``, ``dt_proj``,
+``dt_bias`` (whole on every rank, read through ``local_part``),
+``A_log`` and ``D`` on them, ``x_proj`` row-parallel (its
+``(B, S, dt_rank + 2N)`` sum precedes the three norms, and ``dt_low``,
+``B`` and ``C`` enter the local channels with ``copy_to_model``),
+``out_proj`` row-parallel, the cache's ``conv`` and ``h`` at the local
+channels. A mixer whose heads (RWKV-6) or channels (Mamba) the axis does
+not divide runs whole on every rank (``launch.sharding.runs_whole``).
 
 Where the reference returns a new cache (with the cache donated to the
 step), the port writes the recurrent state (RWKV: ``last_x`` and
@@ -24,6 +47,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch import sharding as shd
 from repro_torch.models.params import (dense_init, ones, param, trunc_normal,
                                        zeros)
 
@@ -98,7 +122,16 @@ def _group_norm(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (yf * scale.float() + bias.float()).to(y.dtype)
 
 
-def rwkv_tmix_apply(
+def rwkv_tmix_apply(p: nn.ParameterDict, x: torch.Tensor, *,
+                    cfg: ModelConfig, **kw) -> Tuple[torch.Tensor, Cache]:
+    """The time mix (:func:`_rwkv_tmix_apply`, whose keywords it takes),
+    run whole on every rank where the ``model`` axis does not divide the
+    heads."""
+    with shd.runs_whole(cfg.num_heads):
+        return _rwkv_tmix_apply(p, x, cfg=cfg, **kw)
+
+
+def _rwkv_tmix_apply(
     p: nn.ParameterDict,
     x: torch.Tensor,               # (B, S, D)
     *,
@@ -107,8 +140,10 @@ def rwkv_tmix_apply(
     cache: Cache = None,           # {"last_x": (B,D), "state": (B,H,K,V)}
     backend: str = "cuda",
 ) -> Tuple[torch.Tensor, Cache]:
+    """At this rank's heads under a model axis: the module's
+    docstring."""
     B, S, D = x.shape
-    H = cfg.num_heads
+    H = shd.local_size(cfg.num_heads)
     K = cfg.ssm.head_dim
     last_x = cache["last_x"] if cache else None
     prev = _token_shift(x, last_x)
@@ -121,11 +156,13 @@ def rwkv_tmix_apply(
     mixed = x[None] + delta[None] * (p["mu_rkvwg"][:, None, None] + offs)
     xr, xk, xv, xw, xg = mixed.unbind(0)
 
-    r = (xr @ p["wr"]).reshape(B, S, H, K)
-    k = (xk @ p["wk"]).reshape(B, S, H, K)
-    v = (xv @ p["wv"]).reshape(B, S, H, K)
-    g = xg @ p["wg"]
-    w_raw = p["w0"] + torch.tanh(xw @ p["decay_a"]) @ p["decay_b"]
+    r = (shd.copy_to_model(xr) @ p["wr"]).reshape(B, S, H, K)
+    k = (shd.copy_to_model(xk) @ p["wk"]).reshape(B, S, H, K)
+    v = (shd.copy_to_model(xv) @ p["wv"]).reshape(B, S, H, K)
+    g = shd.copy_to_model(xg) @ p["wg"]
+    w_raw = shd.local_part(p["w0"]) + shd.copy_to_model(
+        torch.tanh(xw @ p["decay_a"])) @ shd.local_part(p["decay_b"])
+    u = shd.local_part(p["u"], 0)
     # the decay is rounded to r's dtype before the recurrence, as there
     w = torch.exp(-torch.exp(w_raw.float())).reshape(B, S, H, K).to(r.dtype)
 
@@ -134,13 +171,14 @@ def rwkv_tmix_apply(
         if S != 1 or cache is None:
             raise ValueError(f"decode takes one token and a cache, got "
                              f"S={S} and cache={cache is not None}")
-        y, s_out = ops.wkv6_decode(r, k, v.to(r.dtype), w, p["u"], s0,
+        y, s_out = ops.wkv6_decode(r, k, v.to(r.dtype), w, u, s0,
                                    backend=backend)
     else:
-        y, s_out = ops.wkv6(r, k, v, w, p["u"], s0, backend=backend)
-    y = y.reshape(B, S, D)
-    y = _group_norm(y, p["gn_scale"], p["gn_bias"], H, cfg.norm_eps * 64)
-    out = (y * F.silu(g)) @ p["wo"]
+        y, s_out = ops.wkv6(r, k, v, w, u, s0, backend=backend)
+    y = y.reshape(B, S, H * K)
+    y = _group_norm(y, shd.local_part(p["gn_scale"]),
+                    shd.local_part(p["gn_bias"]), H, cfg.norm_eps * 64)
+    out = shd.tp_row_matmul(y * F.silu(g), p["wo"], "heads")
 
     new_cache = None
     if mode in ("prefill", "decode"):
@@ -178,13 +216,15 @@ def rwkv_cmix_apply(
     mode: str = "train",
     cache: Cache = None,           # {"last_x": (B, D)}
 ) -> Tuple[torch.Tensor, Cache]:
+    """Under a model axis ``wk`` is column-parallel and ``wv``
+    row-parallel on ``d_ff``, ``wr`` whole on every rank."""
     last_x = cache["last_x"] if cache else None
     prev = _token_shift(x, last_x)
     delta = prev - x
     xk = x + delta * p["mu_k"]
     xr = x + delta * p["mu_r"]
-    h = torch.relu(xk @ p["wk"]).square()
-    kv = h @ p["wv"]
+    h = torch.relu(shd.copy_to_model(xk) @ p["wk"]).square()
+    kv = shd.tp_row_matmul(h, p["wv"], "ff")
     out = torch.sigmoid(xr @ p["wr"]) * kv
     new_cache = None
     if mode in ("prefill", "decode"):
@@ -254,7 +294,16 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out + b
 
 
-def mamba_apply(
+def mamba_apply(p: nn.ParameterDict, x: torch.Tensor, *, cfg: ModelConfig,
+                **kw) -> Tuple[torch.Tensor, Cache]:
+    """Mamba (:func:`_mamba_apply`, whose keywords it takes), run whole on
+    every rank where the ``model`` axis does not divide the inner
+    channels."""
+    with shd.runs_whole(cfg.ssm.expand * cfg.d_model):
+        return _mamba_apply(p, x, cfg=cfg, **kw)
+
+
+def _mamba_apply(
     p: nn.ParameterDict,
     x: torch.Tensor,               # (B, S, D)
     *,
@@ -268,20 +317,26 @@ def mamba_apply(
     ``logaddexp(x, 0)``, as ``jax.nn.softplus`` is (``F.softplus`` returns
     x above 20). In ``prefill`` and ``decode`` the last ``k - 1`` inputs of
     the convolution and the final state are written into ``cache`` in
-    place, and the same dict is returned."""
+    place, and the same dict is returned. Under a model axis: this rank's
+    channels, as the module's docstring says.
+    ``x_proj``'s partial products are summed as ``tp_row_matmul`` sums
+    them, in float32 (the reference's compiled HLO of the bf16 smoke
+    Jamba's prefill at ``(data 1, model 2)`` on the CPU all-reduces
+    ``f32[B, S, dt_rank + 2N]`` there, each partial ``dot`` rounded to
+    bf16 first, as it does for ``wo`` and ``w_down``)."""
     B, S, D = x.shape
     s = cfg.ssm
-    Din = s.expand * D
+    Din = shd.local_size(s.expand * D)
     N = s.d_state
     dt_rank = _dt_rank(cfg)
     eps = cfg.norm_eps
 
-    xz = x @ p["in_proj"]
+    xz = shd.copy_to_model(x) @ p["in_proj"]
     xin, z = xz.chunk(2, dim=-1)
     prev_conv = cache["conv"] if cache else None
     xc = F.silu(_causal_conv(xin, p["conv_w"], p["conv_b"], prev_conv))
 
-    proj = xc @ p["x_proj"]                                  # (B,S,r+2N)
+    proj = shd.tp_row_matmul(xc, p["x_proj"], "ff")          # (B,S,r+2N)
     # K5's wrapper takes contiguous rows only: the slices are copied
     dt_low = ops.rmsnorm(proj[..., :dt_rank].contiguous(), p["norm_dt"],
                          eps, backend=backend)
@@ -289,7 +344,9 @@ def mamba_apply(
                      p["norm_B"], eps, backend=backend)
     C = ops.rmsnorm(proj[..., dt_rank + N:].contiguous(), p["norm_C"], eps,
                     backend=backend)
-    dt_raw = dt_low @ p["dt_proj"] + p["dt_bias"].to(x.dtype)
+    # the whole dt_low, B and C meet this rank's channels
+    dt_low, Bm, C = (shd.copy_to_model(t) for t in (dt_low, Bm, C))
+    dt_raw = dt_low @ p["dt_proj"] + shd.local_part(p["dt_bias"]).to(x.dtype)
     dt = torch.logaddexp(dt_raw, dt_raw.new_zeros(()))
     A = -torch.exp(p["A_log"])
 
@@ -303,7 +360,7 @@ def mamba_apply(
     else:
         y, h_out = ops.mamba_scan(xc, dt, A, Bm, C, p["D"], h0,
                                   backend=backend)
-    out = (y * F.silu(z)) @ p["out_proj"]
+    out = shd.tp_row_matmul(y * F.silu(z), p["out_proj"], "ff")
 
     new_cache = None
     if mode in ("prefill", "decode"):

@@ -19,7 +19,8 @@ layer is a block in an ``nn.ModuleList`` walked by a Python loop, and the
 logical-sharding annotations drop out (``launch.sharding.logical`` is the
 identity). Under a bound mesh whose ``model`` axis is larger than 1 the
 model runs tensor parallel on this rank's shards (:func:`tp_param_spec`;
-the layers' part is in ``models.attention`` and ``models.mlp``): the
+the layers' part is in ``models.attention``, ``models.ssm`` and
+``models.mlp``; every layer kind has one, :data:`TP_KINDS`): the
 embedding is vocab-parallel (each rank looks up the rows in its range,
 zero elsewhere, and the ranks' rows are summed), so are the head (the
 logits of ``forward`` are this rank's vocabulary columns) and both cross
@@ -29,7 +30,9 @@ prefill's and decode step's logits are gathered whole before they are
 returned, so a greedy argmax sees every column. A
 configuration with ``mtp_depth > 0`` (DeepSeek-V3) carries the
 multi-token-prediction parameters, ``Params.mtp``, as the reference does;
-serving does not use them, its loss does (:func:`_mtp_loss`).
+serving does not use them, its loss does (:func:`_mtp_loss`: its
+embedding vocab-parallel, ``proj`` whole, its block tensor parallel as
+the stack's).
 A layer kind outside :data:`SUPPORTED_KINDS` is refused when the model is
 built (:func:`check_supported`).
 
@@ -170,38 +173,30 @@ def check_supported(cfg: ModelConfig) -> None:
             f"the layer kinds {SUPPORTED_KINDS}")
 
 
-# the (mixer, mlp, cross attention) layer kinds with a tensor-parallel
-# path: on a mesh whose 'model' axis is larger than 1 the port runs these
-TP_KINDS = (("gqa", "dense", False), ("gqa", "moe", False))
+# the layer kinds with a tensor-parallel path: every kind the port builds
+TP_KINDS = SUPPORTED_KINDS
 
 
 def require_supported(mesh, cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` when ``cfg`` cannot run tensor
-    parallel on ``mesh``: a layer kind outside :data:`TP_KINDS`, an MLP
-    width or the padded vocabulary that the ``model`` axis does not divide
+    parallel on ``mesh``: an MLP width (RWKV-6's channel mix's ``d_ff``
+    too) or the padded vocabulary that the ``model`` axis does not divide
     (the reference replicates those by ``resolve_spec``'s divisibility
-    fallback; ROADMAP Queue 1 item 11 queues it), or, where it divides the
-    query heads, KV heads that neither divide nor are divided by it
-    (query heads it does not divide run whole on every rank:
-    ``attention.heads_sharded``). Nothing is refused on a mesh whose
-    ``model`` axis is 1."""
+    fallback; ROADMAP Queue 1 item 11 queues it), or, in a GQA or cross
+    attention whose query heads it divides, KV heads that neither divide
+    nor are divided by it. No layer kind is refused (:data:`TP_KINDS`),
+    and a mixer whose heads (or Mamba's channels) the axis does not divide
+    runs whole on every rank (``launch.sharding.runs_whole``). Nothing is
+    refused on a mesh whose ``model`` axis is 1."""
     tp = mesh_lib.model_size(mesh)
     if tp <= 1:
         return
     item = mesh_lib.TP_ITEM
     kinds = {(k.mixer, k.mlp, k.cross)
              for k in (_kind(cfg, i) for i in range(cfg.num_layers))}
-    bad = sorted(kinds - set(TP_KINDS))
-    if bad:
-        names = ", ".join(f"{m} mixer + {ml} mlp"
-                          f"{' + cross attention' if c else ''}"
-                          for m, ml, c in bad)
-        raise NotImplementedError(
-            f"{cfg.name}: {names} layers on a mesh whose 'model' axis is "
-            f"{tp}: not ported ({item}; ported: {TP_KINDS})")
     KV = cfg.padded_kv_heads()
     widths = {"padded vocabulary": cfg.padded_vocab()}
-    if any(k[1] == "dense" for k in kinds):
+    if any(k[1] in ("dense", "cmix") for k in kinds):
         widths["d_ff"] = cfg.moe.d_ff_dense if (cfg.moe and
                                                 cfg.moe.d_ff_dense) \
             else cfg.d_ff
@@ -216,7 +211,8 @@ def require_supported(mesh, cfg: ModelConfig) -> None:
                 f"{cfg.name}: {what} {n} on a 'model' axis of {tp}, which "
                 f"does not divide it: the replicated fallback is not "
                 f"ported ({item})")
-    if attn.heads_sharded(cfg, tp) and KV % tp and tp % KV:
+    gqa = cfg.is_encoder_decoder or any(k[0] == "gqa" for k in kinds)
+    if gqa and attn.heads_sharded(cfg, tp) and KV % tp and tp % KV:
         raise NotImplementedError(
             f"{cfg.name}: {KV} KV heads on a 'model' axis of {tp}: a rank's "
             f"query heads would read parts of two KV groups ({item})")
@@ -256,7 +252,11 @@ def _uses_ln_bias(cfg: ModelConfig) -> bool:
 
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, kind: LayerKind, *,
-               device=None) -> nn.ModuleDict:
+               device=None,
+               cut: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
+               ) -> nn.ModuleDict:
+    """A block's parameters; ``cut`` is handed to a MoE's
+    ``mlp.moe_init``, which cuts its expert stacks as it draws them."""
     if kind not in SUPPORTED_KINDS:
         raise NotImplementedError(f"{kind} layers are not ported yet")
     b = _uses_ln_bias(cfg)
@@ -276,7 +276,7 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: LayerKind, *,
     if kind.mlp == "cmix":
         p["mlp"] = ssmm.rwkv_cmix_init(gen, cfg, device=device)
     elif kind.mlp == "moe":
-        p["mlp"] = mlpm.moe_init(gen, cfg, device=device)
+        p["mlp"] = mlpm.moe_init(gen, cfg, device=device, cut=cut)
     else:
         d_ff = cfg.moe.d_ff_dense if (cfg.moe and cfg.moe.d_ff_dense) \
             else cfg.d_ff
@@ -291,8 +291,11 @@ def block_cache(cfg: ModelConfig, kind: LayerKind, batch: int, max_len: int,
     if kind not in SUPPORTED_KINDS:
         raise NotImplementedError(f"{kind} caches are not ported yet")
     if kind.mixer == "rwkv":
-        # the last normed input of each mixer; the (K, K) state per head
-        H, K = cfg.num_heads, cfg.ssm.head_dim
+        # the last normed input of each mixer; the (K, K) state per head,
+        # of this rank's heads
+        with shd.runs_whole(cfg.num_heads):
+            H = shd.local_size(cfg.num_heads)
+        K = cfg.ssm.head_dim
         last_x = lambda: torch.zeros((batch, cfg.d_model),
                                      dtype=getattr(torch, cfg.dtype),
                                      device=device)
@@ -302,9 +305,11 @@ def block_cache(cfg: ModelConfig, kind: LayerKind, batch: int, max_len: int,
                                               device=device)},
                 "mlp": {"last_x": last_x()}}
     if kind.mixer == "mamba":
-        # the last d_conv - 1 inputs of the convolution; the (Din, N) state
+        # the last d_conv - 1 inputs of the convolution; the (Din, N)
+        # state; this rank's channels
         s = cfg.ssm
-        Din = s.expand * cfg.d_model
+        with shd.runs_whole(s.expand * cfg.d_model):
+            Din = shd.local_size(s.expand * cfg.d_model)
         dt = getattr(torch, cfg.dtype)
         return {"attn": {
             "conv": torch.zeros((batch, s.d_conv - 1, Din), dtype=dt,
@@ -442,7 +447,8 @@ Keep = Callable[[str, torch.Tensor], torch.Tensor]
 def _kept(keep: Optional[Keep], prefix: str, part):
     """``part`` (a tensor, or a module of parameters named under
     ``prefix``) with each leaf cut by ``keep(name, whole)``; a leaf
-    ``keep`` cuts is copied out, so that its whole is freed."""
+    ``keep`` cuts is copied out, so that its whole is freed. ``keep``
+    returns a leaf that is cut already (a MoE's expert stack) as it is."""
     if keep is None or part is None:
         return part
     if isinstance(part, torch.Tensor):
@@ -461,8 +467,17 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *, device=None,
     ``keep(name, whole) -> part`` each leaf is cut to ``part`` as soon as
     its layer (or the embedding, or the head) is drawn, so a rank of a
     tensor-parallel mesh holds the same values as one process would, with
-    one layer whole at a time."""
+    one layer whole at a time; a MoE's expert stacks are cut as they are
+    drawn (``mlp.moe_init``; DeepSeek-V3's are 7.5 GB each)."""
     check_supported(cfg)
+
+    def block(prefix, kind):
+        """The block under ``prefix``, drawn and cut."""
+        cut = None if keep is None else \
+            lambda name, whole: keep(f"{prefix}.mlp.{name}", whole)
+        return _kept(keep, prefix, block_init(gen, cfg, kind, device=device,
+                                              cut=cut))
+
     dt = getattr(torch, cfg.param_dtype)
     Vp = cfg.padded_vocab()
     D = cfg.d_model
@@ -479,13 +494,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *, device=None,
     enc_blocks = enc_norm = None
     if cfg.is_encoder_decoder:
         # the encoder: uniform non-causal GQA blocks
-        enc_blocks = [_kept(keep, f"enc_blocks.{i}",
-                            block_init(gen, cfg, ENC_KIND, device=device))
+        enc_blocks = [block(f"enc_blocks.{i}", ENC_KIND)
                       for i in range(cfg.num_encoder_layers)]
         enc_norm = _kept(keep, "enc_norm",
                          _norm_init(cfg, _uses_ln_bias(cfg), device=device))
-    blocks = [_kept(keep, f"blocks.{i}",
-                    block_init(gen, cfg, _kind(cfg, i), device=device))
+    blocks = [block(f"blocks.{i}", _kind(cfg, i))
               for i in range(cfg.num_layers)]
     final_norm = _kept(keep, "final_norm",
                        _norm_init(cfg, _uses_ln_bias(cfg), device=device))
@@ -495,13 +508,12 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *, device=None,
             gen, D, Vp, std=1.0 / math.sqrt(D), dtype=dt, device=device))
     mtp = None
     if cfg.mtp_depth > 0:
-        mtp = _kept(keep, "mtp", MTP(
-            dense_init(gen, 2 * D, D, dtype=dt, device=device),
-            _norm_init(cfg, False, device=device),
-            _norm_init(cfg, False, device=device),
-            block_init(gen, cfg, kind_for_layer(cfg, cfg.num_layers - 1),
-                       device=device),
-            _norm_init(cfg, False, device=device)))
+        mtp = MTP(dense_init(gen, 2 * D, D, dtype=dt, device=device),
+                  _norm_init(cfg, False, device=device),
+                  _norm_init(cfg, False, device=device),
+                  block("mtp.block", kind_for_layer(cfg, cfg.num_layers - 1)),
+                  _norm_init(cfg, False, device=device))
+        mtp = _kept(keep, "mtp", mtp)
     return Params(embed, blocks, final_norm, lm_head, ln0, mtp, pos_embed,
                   enc_blocks, enc_norm)
 
@@ -517,25 +529,31 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None
 # ---------------------------------------------------------------------------
 
 
+def _lookup(p: Params, cfg: ModelConfig, tokens: torch.Tensor
+            ) -> torch.Tensor:
+    """The embedding rows of ``tokens`` in ``cfg.dtype``. The reference's
+    jnp.take; as F.embedding, its gradient sums each row's contributions
+    in float32 on the card and rounds once, where indexing's would round a
+    bfloat16 row after every addition. Vocab-parallel under a model axis:
+    this rank's rows, zero where the token is not in its range, summed
+    over ``model`` (one row is non-zero: exact)."""
+    dt = getattr(torch, cfg.dtype)
+    tp = shd.model_axis()
+    if tp is None:
+        return torch.nn.functional.embedding(tokens, p.embed).to(dt)
+    rows = p.embed.shape[0]
+    local = tokens - tp.index * rows
+    hit = (local >= 0) & (local < rows)
+    e = torch.nn.functional.embedding(local.clamp(0, rows - 1), p.embed)
+    e = torch.where(hit[..., None], e, torch.zeros((), dtype=e.dtype,
+                                                   device=e.device))
+    return shd.reduce_from_model(e).to(dt)
+
+
 def _embed(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
            positions: torch.Tensor, *, backend: str) -> torch.Tensor:
     dt = getattr(torch, cfg.dtype)
-    # the reference's jnp.take; as F.embedding, its gradient sums each
-    # row's contributions in float32 on the card and rounds once, where
-    # indexing's would round a bfloat16 row after every addition
-    tp = shd.model_axis()
-    if tp is None:
-        x = torch.nn.functional.embedding(tokens, p.embed).to(dt)
-    else:
-        # vocab-parallel: this rank's rows, zero where the token is not
-        # in its range, summed over model (one row is non-zero: exact)
-        rows = p.embed.shape[0]
-        local = tokens - tp.index * rows
-        hit = (local >= 0) & (local < rows)
-        e = torch.nn.functional.embedding(local.clamp(0, rows - 1), p.embed)
-        e = torch.where(hit[..., None], e, torch.zeros((), dtype=e.dtype,
-                                                       device=e.device))
-        x = shd.reduce_from_model(e).to(dt)
+    x = _lookup(p, cfg, tokens)
     if p.pos_embed is not None:
         x = x + p.pos_embed[positions.to(device=x.device,
                                          dtype=torch.long)].to(dt)
@@ -604,12 +622,14 @@ def _run_stack(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
     """The decoder's layers in order, or with ``enc`` the encoder's
     (non-causal, no cache). In ``"train"`` mode with grad enabled each
     block is checkpointed by ``cfg.remat`` (the reference checkpoints
-    each scanned period). Returns (x, the MoE aux losses' total or
-    ``None`` without MoE layers, new_cache)."""
+    each scanned period). Returns (x, the MoE aux losses' total, from a
+    float32 zero as the reference's, or ``None`` for a configuration
+    without an MoE, new_cache)."""
     blocks = p.enc_blocks if enc else p.blocks
     context = _remat_context(cfg) \
         if mode == "train" and torch.is_grad_enabled() else None
-    aux_total = None
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device) \
+        if cfg.moe is not None and not enc else None
     new_cache = []
     for i, blk in enumerate(blocks):
         run = functools.partial(
@@ -626,7 +646,7 @@ def _run_stack(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
                 functools.partial(_under, shd.current(), run), x,
                 use_reentrant=False, context_fn=context)
         if aux is not None:
-            aux_total = aux if aux_total is None else aux_total + aux
+            aux_total = aux_total + aux
         new_cache.append(nc)
     return x, aux_total, (new_cache if mode in ("prefill", "decode")
                           else None)
@@ -795,8 +815,7 @@ def _mtp_loss(p: Params, cfg: ModelConfig, hidden: torch.Tensor,
     m = p.mtp
     eps = cfg.norm_eps
     nxt = torch.roll(tokens, -1, 1)                          # token t+1
-    e = torch.nn.functional.embedding(nxt, p.embed).to(
-        getattr(torch, cfg.dtype))
+    e = _lookup(p, cfg, nxt)
     h = torch.cat([_norm(m.norm_h, hidden, eps, backend=backend),
                    _norm(m.norm_e, e, eps, backend=backend)], -1)
     h = h @ m.proj
@@ -994,14 +1013,74 @@ def param_spec(params: Dict[str, torch.Tensor], cfg: ModelConfig
     return out
 
 
+def _block_kind(cfg: ModelConfig, name: str) -> Optional[LayerKind]:
+    """The kind of the block that holds parameter ``name``, ``None`` for
+    a parameter outside the blocks."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        return _kind(cfg, int(parts[1]))
+    if parts[0] == "enc_blocks":
+        return ENC_KIND
+    if parts[:2] == ["mtp", "block"]:
+        return kind_for_layer(cfg, cfg.num_layers - 1)
+    return None
+
+
+def _tp_leaf(cfg: ModelConfig, kind: LayerKind, part: str, leaf: str,
+             spec: Tuple, tp: int) -> Tuple:
+    """The spec the port shards a block's leaf by on a ``model`` axis of
+    ``tp``: ``spec`` (the reference's), or ``None`` throughout for a leaf
+    every rank keeps whole, or the port's own cut."""
+    whole = (None,) * len(spec)
+    if part == "cross" or (part == "mixer" and kind.mixer == "gqa"):
+        if not attn.heads_sharded(cfg, tp) or (
+                leaf in ("wk", "wv", "bk", "bv")
+                and not attn.kv_sharded(cfg, tp)):
+            return whole
+    elif part == "mixer" and kind.mixer == "mla":
+        if not attn.heads_sharded(cfg, tp):
+            return whole
+    elif part == "mixer" and kind.mixer == "rwkv":
+        if cfg.num_heads % tp:
+            return whole
+    elif part == "mixer" and kind.mixer == "mamba":
+        if (cfg.ssm.expand * cfg.d_model) % tp:
+            return whole
+        if leaf == "in_proj":
+            # [x | z]: the reference's ("embed", "ff") cuts contiguous
+            # columns, which at model 2 would give one rank all of x and
+            # the other all of z; the port cuts each half
+            return (None, shd.Halves("model"))
+    elif part == "mlp" and kind.mlp == "cmix":
+        # the reference's name-keyed rules give the channel mix's wk / wv
+        # the attention's ("embed", "heads"), which cuts wv's output
+        # columns; the port runs wv row-parallel on d_ff, and wr whole
+        if leaf == "wv":
+            return ("model", None)
+        if leaf == "wr":
+            return whole
+    return spec
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """Each parameter's whole shape, drawn on the meta device."""
+    with torch.device("meta"):
+        meta = init_params(cfg, torch.Generator(), device="meta")
+    return {n: tuple(t.shape) for n, t in meta.named_parameters()}
+
+
 def tp_param_spec(cfg: ModelConfig, mesh) -> Dict[str, Tuple]:
     """Each parameter's spec on ``mesh`` as the port shards it: the
     reference's (:func:`param_spec`, on the whole leaves' shapes, drawn
-    on the meta device), except a GQA mixer's leaves that every rank
-    keeps whole: all of them where the ``model`` axis does not divide the
-    query heads (``attention.heads_sharded``), else ``wk`` / ``wv`` /
-    ``bk`` / ``bv`` where it does not divide the KV heads
-    (``attention.kv_sharded``)."""
+    on the meta device), except where :func:`_tp_leaf` departs: a mixer's
+    leaves that every rank keeps whole where the ``model`` axis does not
+    divide its heads (GQA, cross attention and MLA by
+    ``attention.heads_sharded``, RWKV-6 by its heads) or Mamba's inner
+    channels, and a GQA or cross attention's ``wk`` / ``wv`` / ``bk`` /
+    ``bv`` where it does not divide the KV heads
+    (``attention.kv_sharded``); Mamba's ``in_proj`` cut half by half
+    (``launch.sharding.Halves``); the channel mix's ``wv`` row-parallel
+    and ``wr`` whole."""
     with torch.device("meta"):
         meta = init_params(cfg, torch.Generator(), device="meta")
     named = dict(meta.named_parameters())
@@ -1010,11 +1089,9 @@ def tp_param_spec(cfg: ModelConfig, mesh) -> Dict[str, Tuple]:
     tp = mesh_lib.model_size(mesh)
     if tp <= 1:
         return spec
-    whole = () if attn.kv_sharded(cfg, tp) else ("wk", "wv", "bk", "bv")
-    if not attn.heads_sharded(cfg, tp):
-        whole = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
-    for n, t in named.items():
-        parts = n.split(".")
-        if parts[-2:-1] == ["mixer"] and parts[-1] in whole:
-            spec[n] = (None,) * t.dim()
+    for n in named:
+        kind = _block_kind(cfg, n)
+        if kind is not None:
+            *_, part, leaf = n.split(".")
+            spec[n] = _tp_leaf(cfg, kind, part, leaf, spec[n], tp)
     return spec

@@ -15,8 +15,8 @@ per-layer leaf (``opt_state_spec`` of a one-leaf tree). Also: the MoE
 expert-stack rule, ``logical``'s rank check, ``named_sharding``'s
 placements, ``batch_axes`` / ``dp_size`` / ``mesh_config_for``,
 ``make_local_mesh()`` refusing to run without a process group, a
-``model`` axis larger than 1 refused for a layer kind with no
-tensor-parallel path, ``sample_locality`` with and
+``model`` axis larger than 1 taken for RWKV-6 and refused for the
+compressed step, ``sample_locality`` with and
 without a group, a one-rank ``gloo`` mesh, and the collectives counted
 and, when asked, timed.
 """
@@ -179,8 +179,12 @@ def test_torch_make_local_mesh_without_a_group_raises():
 
 
 def test_torch_a_model_axis_larger_than_1_is_refused():
-    """A layer kind without a tensor-parallel path (RWKV-6's) on a mesh
-    whose ``model`` axis is 2, and the compressed step for any model."""
+    """A layer kind that had no tensor-parallel path (RWKV-6's) on a mesh
+    whose ``model`` axis is 2 is taken now: ``require_supported`` passes,
+    the model builds on the mesh with its time mix cut on heads, and
+    ``make_train_step`` refuses only a model not built on that mesh. The
+    compressed step still refuses a ``model`` axis for any model (ROADMAP
+    Queue 1 item 11.5)."""
     from repro_torch.launch.compressed import make_compressed_train_step
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.api import build_model
@@ -189,13 +193,16 @@ def test_torch_a_model_axis_larger_than_1_is_refused():
     m.init(0)
     m.requires_grad_(True)
     tp = stand_in((2, 2, 2), ("pod", "data", "model"))
-    for fn in (lambda: tfm.require_supported(tp, cfg),
-               lambda: make_train_step(m, tconfigs.OptimizerConfig(),
-                                       backend="torch", mesh=tp),
-               lambda: make_compressed_train_step(
-                   m, tconfigs.OptimizerConfig(), tp, backend="torch")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            fn()
+    tfm.require_supported(tp, cfg)
+    spec = build_model(cfg, device="cpu", mesh=tp).spec
+    assert spec["blocks.0.mixer.wr"] == (None, "model")
+    assert spec["blocks.0.mixer.wo"] == ("model", None)
+    with pytest.raises(ValueError, match="built on it"):
+        make_train_step(m, tconfigs.OptimizerConfig(), backend="torch",
+                        mesh=tp)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        make_compressed_train_step(m, tconfigs.OptimizerConfig(), tp,
+                                   backend="torch")
     with pytest.raises(ValueError, match="multi-pod"):
         make_compressed_train_step(m, tconfigs.OptimizerConfig(),
                                    stand_in((4, 1), ("data", "model")),

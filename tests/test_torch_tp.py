@@ -26,8 +26,8 @@ for all five configurations and at ``(2, 2)``;
 ``REPRO_BF16_TP`` on and off; the collectives of a prefill and of a
 decode step, counted; every rank returning the same; query heads that
 ``model 4`` does not divide (six) running whole on every rank against
-one process; and the layer kinds without a tensor-parallel path
-refused.
+one process; and the layer kinds that had no tensor-parallel path
+before ``tests/test_torch_tp_mixers.py``'s taken.
 """
 import json
 import os
@@ -600,15 +600,25 @@ def test_torch_tp_collectives_of_a_prefill_and_a_decode_step(runs, arch):
                                   "rwkv6-3b", "jamba-v0.1-52b",
                                   "seamless-m4t-large-v2"])
 def test_torch_tp_layer_kinds_without_a_path_are_refused(arch):
+    """These five configurations' layer kinds (MLA, RWKV-6, Mamba, cross
+    attention) were refused on a ``model`` axis of 2 until they had a
+    tensor-parallel path; they have one now, so each is taken:
+    ``require_supported`` passes, ``build_model`` builds on the mesh, and
+    its spec cuts the mixer's leaves (``tests/test_torch_tp_mixers.py``
+    runs them on ranks)."""
     from repro_torch import configs
     from repro_torch.models import transformer as tfm
     from repro_torch.models.api import build_model
     cfg = configs.get_model_config(arch, smoke=True)
     tp = types.SimpleNamespace(shape={"data": 1, "model": 2})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tfm.require_supported(tp, cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        build_model(cfg, device="cpu", mesh=tp)
+    tfm.require_supported(tp, cfg)
+    spec = build_model(cfg, device="cpu", mesh=tp).spec
+    leaf = {"minicpm3-4b": "blocks.0.mixer.wq_b",
+            "deepseek-v3-671b": "blocks.0.mixer.wkv_b",
+            "rwkv6-3b": "blocks.0.mixer.wr",
+            "jamba-v0.1-52b": "blocks.0.mixer.conv_w",
+            "seamless-m4t-large-v2": "blocks.0.cross.wq"}[arch]
+    assert spec[leaf] == (None, "model")
     # a model axis of 1 refuses nothing
     tfm.require_supported(
         types.SimpleNamespace(shape={"data": 2, "model": 1}), cfg)

@@ -17,8 +17,8 @@ rank's parameters the same; microbatches 2 against 1 (1e-5 / 1e-4) and
 the ZeRO-1 accumulator's slice giving the same bits as the whole one;
 ``train(mesh=, ckpt_dir=, ckpt_every=)`` saving whole leaves from rank 0
 that restore bit-equal at world size 1 (no mesh) and, cut to a rank's
-slice, at world size 4; a ``model`` axis of 2 refused for RWKV-6, which
-has no tensor-parallel path. At world size 4:
+slice, at world size 4; RWKV-6 on a ``model`` axis of 2 taking a step
+(its loss one process's). At world size 4:
 the compressed step (int8 ring over ``pod``) against the reference's
 ``make_compressed_train_step``, run on a mesh whose axes are
 ``AxisType.Auto`` (on the default ``Explicit`` axes its sharding
@@ -49,6 +49,12 @@ CKPT_STEP = 2
 def _cfg():
     from repro_torch import configs
     return configs.get_model_config(ARCH, smoke=True).replace(
+        dtype="float32", param_dtype="float32")
+
+
+def _rwkv_cfg():
+    from repro_torch import configs
+    return configs.get_model_config("rwkv6-3b", smoke=True).replace(
         dtype="float32", param_dtype="float32")
 
 
@@ -126,12 +132,12 @@ def _save(path, tensors):
 
 def _world2(rank, rdv, out):
     import torch.distributed as dist
-    from repro_torch import configs
     from repro_torch.configs import OptimizerConfig
     from repro_torch.models.api import build_model
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import train
+    from repro_torch.optim import init_opt_state
     dist.init_process_group("gloo", init_method=f"file://{rdv}",
                             world_size=2, rank=rank)
     try:
@@ -155,15 +161,17 @@ def _world2(rank, rdv, out):
                   ckpt_every=CKPT_STEP)
         res["train_losses"] = r.losses
         tp = mesh_lib.make_local_mesh(model_parallel=2, device_type="cpu")
-        # RWKV-6 has no tensor-parallel path (its refusal stands)
-        rwkv = build_model(configs.get_model_config("rwkv6-3b", smoke=True),
-                           device="cpu")
+        # RWKV-6 on a model axis of 2: built on it, one step taken
+        rwkv = build_model(_rwkv_cfg(), device="cpu", mesh=tp)
         rwkv.init(SEED)
         rwkv.requires_grad_(True)
         try:
-            make_train_step(rwkv, OptimizerConfig(), backend="torch",
-                            mesh=tp)
+            ocfg = OptimizerConfig(**OPT)
+            step = make_train_step(rwkv, ocfg, backend="torch", mesh=tp)
+            _, m = step(init_opt_state(ocfg, dict(
+                rwkv.params.named_parameters()), step.zero), _batches()[0])
             res["tp_refused"] = ""
+            res["tp_loss"] = float(m["loss"])
         except NotImplementedError as e:
             res["tp_refused"] = str(e)
         with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
@@ -451,8 +459,22 @@ def test_torch_dp_checkpoint_at_world2_restores_at_world4(runs):
 
 
 def test_torch_dp_a_model_axis_of_2_is_refused(runs):
-    assert "Queue 1 item 11" in _json(runs["w2"] / "rank0.json")[
-        "tp_refused"]
+    """RWKV-6 had no tensor-parallel path and was refused on a ``model``
+    axis of 2; it has one now: built on the world-2 ``(1, 2)`` mesh it
+    takes a step, whose loss is one process's within 1e-5."""
+    from repro_torch.configs import OptimizerConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import init_opt_state
+    res = _json(runs["w2"] / "rank0.json")
+    assert res["tp_refused"] == ""
+    rwkv = build_model(_rwkv_cfg(), device="cpu")
+    rwkv.init(SEED)
+    rwkv.requires_grad_(True)
+    ocfg = OptimizerConfig(**OPT)
+    _, m = make_train_step(rwkv, ocfg, backend="torch")(init_opt_state(
+        ocfg, dict(rwkv.params.named_parameters())), _batches()[0])
+    np.testing.assert_allclose(res["tp_loss"], float(m["loss"]), rtol=1e-5)
 
 
 def _reference_rank(npz, r):

@@ -32,6 +32,17 @@ backward is the reference's, on both backends:
     With the cotangents of y and of the final state; the state's is
     ``None`` when the final state is not used, as in training.
 
+On the meta device (the dry run's trace, ``launch.steps.lower_*``) the
+plain forwards of attention, wkv6 and mamba_scan are the chunked forms,
+those the backward differentiates and the reference's XLA path: the
+full-softmax attention would hold an S x S float32 score per head (343
+GB a rank for MiniCPM3's 32k-token prefill), which K4 never does, and
+the recurrence one token at a time would dispatch some 15 ops a token,
+minutes of host time for a 32k-token layer with no values behind them.
+The chunked attention counts the same FLOPs as the full one where the
+keys are a multiple of its 512-key block. On a real device the plain
+forwards are always the full softmax and the sequential recurrences.
+
 This split is the reference's, and so is what it implies for WKV6: the
 forward (K6, the Pallas kernel, or the plain recurrence) keeps no clamp
 of the decay, while the backward is the gradient of the chunked form,
@@ -86,6 +97,10 @@ class _Attention(torch.autograd.Function):
 
 def _attention_fwd(q, k, v, *, causal, window, q_offset, scale, backend):
     if backend == "torch":
+        if q.is_meta:
+            return chunked.flash_attention(q, k, v, causal=causal,
+                                           window=window, q_offset=q_offset,
+                                           scale=scale)
         return ref.attention(q, k, v, causal=causal, window=window,
                              q_offset=q_offset, scale=scale)
     return flash_attention(q, k, v, causal=causal, window=window,
@@ -229,6 +244,8 @@ def wkv6_vjp(r, k, v, w, u, s0, gy, gs, needs=(True,) * 6):
 
 def _wkv6_fwd(r, k, v, w, u, s0, *, backend):
     if backend == "torch":
+        if r.is_meta:
+            return chunked.wkv6_chunked(r, k, v, w, u, s0)
         return ref.wkv6(r, k, v, w, u, s0)
     return wkv6_kernel(r, k, v, w, u, s0)
 
@@ -282,6 +299,8 @@ def mamba_scan_vjp(x, dt, A, Bm, C, D, h0, gy, gh, needs=(True,) * 7):
 
 def _mamba_scan_fwd(x, dt, A, Bm, C, D, h0, *, backend):
     if backend == "torch":
+        if x.is_meta:
+            return chunked.mamba_chunked(x, dt, A, Bm, C, D, h0)
         return ref.mamba_scan(x, dt, A, Bm, C, D, h0)
     return mamba_scan_kernel(x, dt, A, Bm, C, D, h0)
 

@@ -16,14 +16,18 @@ Axes:
 
 A ``model`` axis larger than 1 is tensor parallelism; which layer kinds
 have a tensor-parallel path is the models' to say
-(``models.transformer.require_supported``), and :func:`refuse_model_axis`
-refuses such a mesh where nothing runs on it yet. Meshes are made on
+(``models.transformer.require_supported``). Meshes are made on
 ``"cuda"`` unless the caller names ``"cpu"``. :func:`axes_group` gives the
 process group over any subset of the axes. :func:`all_reduce` and
 :func:`all_gather` are the collectives the port's layers, gradient
 reduction and ZeRO-1 issue; :func:`collective_counts` counts every
 collective the port issues (by kind), for the launch counts a step
-reports, and :func:`time_collectives` turns on a timer of the host's
+reports, and :func:`collective_bytes` the operand bytes each sent, by
+the reference's op kinds (``all-reduce``, ``all-gather`` and, for the
+int8 ring's sends, ``collective-permute``: what
+``repro.launch.roofline.parse_collective_bytes`` sums from the HLO, an
+all-gather's operand and not its result); :func:`time_collectives` turns
+on a timer of the host's
 time inside :func:`all_reduce` and :func:`all_gather`
 (:func:`collective_seconds`), off by default: each timed call first waits
 for the device, so a timed step is slower than an untimed one.
@@ -43,12 +47,29 @@ from repro_torch.configs.base import MeshConfig
 TP_ITEM = ("ROADMAP.md Queue 1 item 11, its tensor-parallel half (a "
            "'model' axis larger than 1)")
 
+# the reference's collective op kinds (HLO opcode names)
+COLLECTIVE_OPS = ("all-reduce", "all-gather", "reduce-scatter",
+                  "all-to-all", "collective-permute")
+
 _COUNTS: Counter = Counter()
+_BYTES: Counter = Counter()
 _TIMER = {"on": False, "s": 0.0}
 
 
-def count(kind: str, n: int = 1) -> None:
+def count(kind: str, n: int = 1, *, op: Optional[str] = None,
+          nbytes: int = 0) -> None:
+    """Count ``n`` collectives of ``kind``; with ``op`` (one of
+    :data:`COLLECTIVE_OPS`) add the ``nbytes`` of operand they sent to
+    :func:`collective_bytes`."""
     _COUNTS[kind] += n
+    if op is not None:
+        if op not in COLLECTIVE_OPS:
+            raise ValueError(f"unknown collective op {op!r}")
+        _BYTES[op] += nbytes
+
+
+def nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
 
 
 def time_collectives(on: bool) -> None:
@@ -91,8 +112,16 @@ def collective_counts() -> Dict[str, int]:
     return dict(_COUNTS)
 
 
+def collective_bytes() -> Dict[str, int]:
+    """The operand bytes of the collectives counted since
+    :func:`reset_collective_counts`, by op kind (every kind of
+    :data:`COLLECTIVE_OPS`, 0 where none was issued)."""
+    return {op: _BYTES[op] for op in COLLECTIVE_OPS}
+
+
 def reset_collective_counts() -> None:
     _COUNTS.clear()
+    _BYTES.clear()
 
 
 def _init_device_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
@@ -112,6 +141,11 @@ def _init_device_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
 
 def make_production_mesh(*, multi_pod: bool = False,
                          device_type: str = "cuda"):
+    """The 16 x 16 mesh (256 ranks) or the 2 x 16 x 16 one (512) over the
+    running process group, whatever its backend: NCCL over that many
+    cards, or the fake backend of the dry run
+    (``torch.testing._internal.distributed.fake_pg``, ``device_type=
+    "cpu"``), where every rank's collectives return at once."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return _init_device_mesh(shape, axes, device_type)
@@ -180,15 +214,6 @@ def model_size(mesh) -> int:
     return mesh_shape(mesh).get("model", 1)
 
 
-def refuse_model_axis(mesh, what: str) -> None:
-    """Raise ``NotImplementedError`` for ``what`` on a mesh whose ``model``
-    axis is larger than 1."""
-    if model_size(mesh) > 1:
-        raise NotImplementedError(
-            f"{what} on a mesh whose 'model' axis is {model_size(mesh)}: "
-            f"not ported ({TP_ITEM})")
-
-
 def coordinate(mesh, axes: Sequence[str]) -> int:
     """This rank's flat index over ``axes`` (in mesh order, the first
     major), as a ``P(("pod", "data"))`` sharding numbers its shards."""
@@ -239,7 +264,7 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     with _Timed(x):
         dist.all_reduce(x, op=dist.ReduceOp.SUM if op == "sum"
                         else dist.ReduceOp.MAX, group=group)
-    count("all_reduce")
+    count("all_reduce", op="all-reduce", nbytes=nbytes(x))
     return x
 
 
@@ -251,5 +276,5 @@ def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
                                  for _ in range(dist.get_world_size(group))]
     with _Timed(x):
         dist.all_gather(parts, x, group=group)
-    count("all_gather")
+    count("all_gather", op="all-gather", nbytes=nbytes(x))
     return torch.cat(parts, dim=dim)

@@ -9,6 +9,8 @@ name, or a tuple of names. Resolution applies the same **divisibility
 fallback**: when a dim is not divisible by the product of its mapped axes'
 sizes, trailing axes are dropped until it is (else it replicates), and
 every fallback is recorded as ``(logical name, dim, divisor)``.
+``axis_rules`` refuses an override that the port's layers do not carry
+out (:func:`check_rules`).
 ``resolve_spec`` reads only the mesh's axis sizes, so the bound mesh may
 be a ``DeviceMesh`` or anything with an ordered ``shape`` mapping (the
 production sizes, with no ranks behind them).
@@ -85,9 +87,65 @@ class _Ctx(threading.local):
 _ctx = _Ctx()
 
 
+# the ROADMAP.md item that carries out an override of each logical name
+_OVERRIDE_ITEM = {
+    "seq": "ROADMAP.md Queue 1 item 14.1 (context parallelism: the "
+           "sequence of the cache sharded, each rank's partial softmax "
+           "merged)",
+    "expert": "ROADMAP.md Queue 1 item 14.2 (expert parallelism)",
+}
+_OTHER_ITEM = ("ROADMAP.md Queue 1 item 14.3 (axis-rule overrides the "
+               "layers do not read)")
+
+
+def _bound_axes(rule, shape: Dict[str, int]) -> Tuple[str, ...]:
+    """The axes of ``shape`` that a rule binds (an axis the mesh lacks
+    drops out, as :func:`resolve_spec` drops it)."""
+    if rule is None:
+        return ()
+    axes = (rule,) if isinstance(rule, str) else tuple(rule)
+    return tuple(a for a in axes if a in shape)
+
+
+def check_rules(mesh, rules: Optional[Dict]) -> None:
+    """Raise ``NotImplementedError`` for an override in ``rules`` that the
+    port's layers do not carry out on ``mesh``.
+
+    The layers read no rule: they cut by :func:`model_axis`, the step
+    slices the batch over ``mesh.batch_axes`` (``pod`` and ``data``),
+    ZeRO-1 slices the moments over the same axes
+    (``optim.adamw.zero1_layout`` binds the default rules itself, and
+    ``opt_state_spec`` reads ``batch_axes``, not the ``ddp`` rule), and
+    ``transformer.tp_param_spec`` resolves the leaves' specs under the
+    default rules. So the overrides the port honors are those that bind
+    a logical name to the axes its default binds on this mesh (an axis
+    the mesh lacks counts as absent): e.g. ``{"batch": ("data",)}`` on a
+    ``(data, model)`` mesh, or ``{"heads": "model"}``. Every other
+    override would have :func:`resolve_spec` describe a distribution the
+    step does not run, and is refused: ``seq`` or ``expert`` bound to an
+    axis, ``heads`` / ``kv_heads`` / ``ff`` / ``vocab`` mapped to anything
+    but ``model``, ``batch`` or ``ddp`` off ``pod x data``, ``embed`` or
+    ``state`` bound to an axis."""
+    if not rules:
+        return
+    shape = mesh_shape(mesh)
+    for name, rule in rules.items():
+        want = _bound_axes(DEFAULT_RULES.get(name), shape)
+        if _bound_axes(rule, shape) != want:
+            raise NotImplementedError(
+                f"axis rule {name!r} -> {rule!r} (the port binds "
+                f"{name!r} to {want or None} on this mesh): its layers "
+                f"do not carry it out ("
+                f"{_OVERRIDE_ITEM.get(name, _OTHER_ITEM)})")
+
+
 @contextlib.contextmanager
 def axis_rules(mesh, rules: Optional[Dict] = None):
-    """Bind logical axis names to *mesh* for the duration of the context."""
+    """Bind logical axis names to *mesh* for the duration of the context.
+    ``rules`` overrides :data:`DEFAULT_RULES` only where the layers carry
+    the override out (:func:`check_rules`, which raises
+    ``NotImplementedError`` otherwise)."""
+    check_rules(mesh, rules)
     prev = (_ctx.mesh, _ctx.rules)
     _ctx.mesh = mesh
     _ctx.rules = dict(DEFAULT_RULES, **(rules or {}))

@@ -30,20 +30,32 @@ the router's) comes out equal on every model rank, so both are reduced
 over the batch axes only; the global norm for clipping sums the sharded
 leaves' squares over ``model`` (``optim.adamw.ModelShards``). The
 collectives of a step are counted by ``mesh.collective_counts``, those a
-remat recompute issues again included. The dry-run lowering comes with
-its slice (``ROADMAP.md``).
+remat recompute issues again included.
+
+:func:`lower_train_step`, :func:`lower_prefill_step`,
+:func:`lower_decode_step` and :func:`lower_step_for` are the dry run's
+counterparts of the reference's AOT lowering: each traces one rank's
+step on the meta device (``launch.step_trace``), the model built on the
+mesh on the meta device (``build_model(cfg, device="meta", mesh=mesh)``;
+its parameters are :meth:`Model.abstract_params`), the inputs the
+reference's specs (``models.api.input_specs``), the kernel backend
+``"torch"``, and returns a ``StepTrace``. A serving step is handed its
+rank's slice of the batch over ``pod x data`` (the whole batch where that
+does not divide it, as the reference replicates it).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Iterable
 
 import torch
 
-from repro_torch.configs.base import OptimizerConfig
+from repro_torch.configs.base import OptimizerConfig, ShapeConfig
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.step_trace import StepTrace, trace_step
 from repro_torch.models import transformer as tfm
-from repro_torch.models.api import Model
-from repro_torch.optim import adamw_update, decay_mask, zero1_layout
+from repro_torch.models.api import Model, input_specs
+from repro_torch.optim import (adamw_update, decay_mask, init_opt_state,
+                               zero1_layout)
 from repro_torch.optim.adamw import model_shards
 from repro_torch.optim.compress import hierarchical_grad_reduce
 
@@ -204,3 +216,116 @@ def make_decode_step(model: Model, backend: str = "cuda", mesh=None):
                                           memory=memory, backend=backend)
         return logits, cache
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# the dry run: one rank's step traced on the meta device
+# ---------------------------------------------------------------------------
+
+
+def _on_meta(model: Model, mesh, train: bool) -> None:
+    """Give ``model`` (built on ``mesh`` on the meta device) its abstract
+    parameters, trainable for a train step."""
+    require_model_on(model, mesh)
+    if model.device.type != "meta":
+        raise ValueError("a step is traced on a model built on the meta "
+                         "device: build_model(cfg, device='meta', mesh=mesh)")
+    if model.params is None:
+        model.params = model.abstract_params()
+    model.requires_grad_(train)
+
+
+def _nbytes(tensors: Iterable[torch.Tensor]) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _rank_batch(batch: Dict[str, torch.Tensor], mesh):
+    """This rank's slice of ``batch`` over ``pod x data`` (the whole batch
+    where the batch axes do not divide it)."""
+    if mesh is None:
+        return batch
+    dp = mesh_lib.dp_size(mesh)
+    B = next(v.shape[1] if n == "mrope_positions" else v.shape[0]
+             for n, v in batch.items() if v.dim())
+    if dp <= 1 or B % dp:
+        return batch
+    return _local(batch, dp, mesh_lib.coordinate(
+        mesh, mesh_lib.batch_axes(mesh)))
+
+
+def trace_train(model: Model, opt_cfg: OptimizerConfig, mesh,
+                shape: ShapeConfig, make_step: Callable) -> StepTrace:
+    """Trace the train step ``make_step()`` builds for ``model`` on the
+    meta device, its optimizer state made by ``init_opt_state`` (with the
+    step's ZeRO-1 layout), handed the global batch of ``shape``, of which
+    the rank keeps its slice."""
+    _on_meta(model, mesh, True)
+    step = make_step()
+    params = dict(model.params.named_parameters())
+    state = init_opt_state(opt_cfg, params, getattr(step, "zero", None))
+    batch = input_specs(model.cfg, shape)
+    dp = 1 if mesh is None else mesh_lib.dp_size(mesh)
+    local = _local(batch, dp, 0)
+    args = list(params.values()) + [state.step] + list(state.mu.values()) \
+        + list(state.nu.values())
+    return trace_step(lambda: step(state, batch), args,
+                      kept=batch.values(), kept_bytes=_nbytes(local.values()))
+
+
+def lower_train_step(model: Model, opt_cfg: OptimizerConfig, mesh,
+                     shape: ShapeConfig, *, microbatches: int = 1
+                     ) -> StepTrace:
+    """Trace one rank's ``make_train_step(mesh=)`` on the meta device."""
+    return trace_train(model, opt_cfg, mesh, shape, lambda: make_train_step(
+        model, opt_cfg, microbatches=microbatches, backend="torch",
+        mesh=mesh))
+
+
+def _serve_len(model: Model, shape: ShapeConfig) -> int:
+    return shape.seq_len // 2 if model.cfg.is_encoder_decoder \
+        else shape.seq_len
+
+
+@torch.no_grad()
+def lower_prefill_step(model: Model, mesh, shape: ShapeConfig
+                       ) -> StepTrace:
+    """Trace one rank's prefill of its slice of ``shape``'s batch, the
+    cache made for ``seq_len`` (half of it for an encoder-decoder)."""
+    _on_meta(model, mesh, False)
+    specs = input_specs(model.cfg, shape)
+    local = _rank_batch(specs, mesh)
+    step = make_prefill_step(model, max_len=_serve_len(model, shape),
+                             backend="torch", mesh=mesh)
+    return trace_step(lambda: step(local), model.params.parameters(),
+                      kept=specs.values(),
+                      kept_bytes=_nbytes(local.values()))
+
+
+@torch.no_grad()
+def lower_decode_step(model: Model, mesh, shape: ShapeConfig
+                      ) -> StepTrace:
+    """Trace one rank's decode step of its slice of ``shape``'s batch
+    against a cache of ``seq_len`` (half of it for an encoder-decoder)."""
+    _on_meta(model, mesh, False)
+    specs = input_specs(model.cfg, shape)
+    local = _rank_batch(specs, mesh)
+    cache = model.abstract_cache(local["token"].shape[0],
+                                 _serve_len(model, shape))
+    step = make_decode_step(model, backend="torch", mesh=mesh)
+    leaves = [t for layer in cache for part in layer.values()
+              for t in part.values()]
+    return trace_step(
+        lambda: step(local["token"], local["pos"], local["kv_len"], cache,
+                     memory=local.get("memory")),
+        list(model.params.parameters()) + leaves, kept=specs.values(),
+        kept_bytes=_nbytes(local.values()))
+
+
+def lower_step_for(model: Model, opt_cfg: OptimizerConfig, mesh,
+                   shape: ShapeConfig) -> StepTrace:
+    """Dispatch on the cell kind: train_step / prefill / decode."""
+    if shape.kind == "train":
+        return lower_train_step(model, opt_cfg, mesh, shape)
+    if shape.kind == "prefill":
+        return lower_prefill_step(model, mesh, shape)
+    return lower_decode_step(model, mesh, shape)

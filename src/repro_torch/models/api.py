@@ -14,8 +14,15 @@ default, or ``"torch"``; :mod:`repro_torch.kernels.ops`). Parameters are in
 ``cfg.param_dtype``, activations and the cache in ``cfg.dtype``. They
 are built as serving parameters (``requires_grad=False``);
 ``model.requires_grad_(True)`` (``nn.Module``'s) makes them trainable, as
-``launch.train.train`` does. The abstract input specs of the dry-run
-come with its port.
+``launch.train.train`` does.
+
+For the dry run (``launch.dryrun``) the module also holds the reference's
+abstract half: :meth:`Model.abstract_params`, :meth:`Model.abstract_cache`
+and :meth:`Model.cache_spec`, and the input specs
+(:func:`train_input_specs`, :func:`prefill_input_specs`,
+:func:`decode_input_specs`, :func:`input_specs`) as tensors on the meta
+device at the reference's shapes and dtypes, with :func:`make_concrete`
+to draw real ones.
 
 ``mesh`` (``launch.mesh``) is the mesh the model runs on: every method
 binds it (``launch.sharding.axis_rules``) for its call. On a mesh whose
@@ -102,6 +109,31 @@ class Model(nn.Module):
             return contextlib.nullcontext()
         return shd.axis_rules(self.mesh)
 
+    def abstract_params(self) -> tfm.Params:
+        """This rank's parameters as meta tensors at their shard shapes
+        (:attr:`shapes` cut by :attr:`spec` on a mesh), with
+        ``requires_grad`` as :meth:`init` sets it (``False``). Nothing is
+        drawn: the meta device holds no values (and takes no generator of
+        its own, so :meth:`init` cannot serve). The model keeps its own
+        ``params``; set them to the result to trace on the meta device."""
+        keep = None if self.mesh is None else self.shard
+        with torch.device("meta"):
+            return tfm.init_params(self.cfg, torch.Generator(),
+                                   device="meta", keep=keep)
+
+    def abstract_cache(self, batch: int, max_len: int) -> tfm.Cache:
+        """:meth:`init_cache` on the meta device: this rank's cache for
+        ``batch`` sequences of ``max_len``."""
+        with self.bound():
+            return tfm.init_cache(self.cfg, batch, max_len, device="meta")
+
+    def cache_spec(self, cache: tfm.Cache):
+        """Each cache leaf's resolved spec (the reference's
+        ``transformer.cache_spec`` rule by leaf name), under the model's
+        mesh or, without one, the bound axis rules."""
+        with self.bound():
+            return tfm.cache_spec(cache)
+
     def init_cache(self, batch: int, max_len: int) -> tfm.Cache:
         with self.bound():
             return tfm.init_cache(self.cfg, batch, max_len,
@@ -159,3 +191,104 @@ def build_model(cfg: ModelConfig, *, device=None, mesh=None) -> Model:
     divide; ``RuntimeError`` for
     ``device=None`` without a card."""
     return Model(cfg, device=device, mesh=mesh)
+
+
+# ---------------------------------------------------------------------------
+# abstract input specs per (arch family, shape cell)
+# ---------------------------------------------------------------------------
+
+# token, position and length tensors are int32, as the port's pipeline
+# (``data.SyntheticLM``) and ``launch.serve`` make them and the reference's
+# specs have them; the losses widen the tokens to int64 where they index
+I32 = torch.int32
+F32 = torch.float32
+
+
+def _sds(shape, dtype=I32) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def train_input_specs(cfg: ModelConfig, shape) -> Dict[str, torch.Tensor]:
+    """Inputs for ``loss_fn``: tokens (B, S+1) plus modality extras."""
+    B, S = shape.global_batch, shape.seq_len
+    if cfg.is_encoder_decoder:
+        # budget: S_enc = S_dec = S/2 (DESIGN.md §4)
+        Se = Sd = S // 2
+        return {
+            "tokens": _sds((B, Sd + 1)),
+            "enc_embeds": _sds((B, Se, cfg.d_model), F32),
+        }
+    specs = {"tokens": _sds((B, S + 1))}
+    if cfg.frontend == "vision":
+        n_patch = max(1, S // 4)                 # stub: 25% image patches
+        specs["patch_embeds"] = _sds((B, n_patch, cfg.d_model), F32)
+        specs["patch_positions"] = _sds((B, n_patch))
+    if cfg.rope == "mrope":
+        specs["mrope_positions"] = _sds((3, B, S))
+    return specs
+
+
+def prefill_input_specs(cfg: ModelConfig, shape) -> Dict[str, torch.Tensor]:
+    B, S = shape.global_batch, shape.seq_len
+    if cfg.is_encoder_decoder:
+        Se = Sd = S // 2
+        return {
+            "tokens": _sds((B, Sd)),
+            "enc_embeds": _sds((B, Se, cfg.d_model), F32),
+        }
+    specs = {"tokens": _sds((B, S))}
+    if cfg.frontend == "vision":
+        n_patch = max(1, S // 4)
+        specs["patch_embeds"] = _sds((B, n_patch, cfg.d_model), F32)
+        specs["patch_positions"] = _sds((B, n_patch))
+    if cfg.rope == "mrope":
+        specs["mrope_positions"] = _sds((3, B, S))
+    return specs
+
+
+def decode_input_specs(cfg: ModelConfig, shape) -> Dict[str, torch.Tensor]:
+    """Inputs for one ``decode_step`` with a KV cache of ``seq_len``."""
+    B = shape.global_batch
+    specs = {
+        "token": _sds((B,)),
+        "pos": _sds(()),
+        "kv_len": _sds((B,)),
+    }
+    if cfg.is_encoder_decoder:
+        Se = shape.seq_len // 2
+        specs["memory"] = _sds((B, Se, cfg.d_model), F32)
+    return specs
+
+
+def input_specs(cfg: ModelConfig, shape) -> Dict[str, torch.Tensor]:
+    if shape.kind == "train":
+        return train_input_specs(cfg, shape)
+    if shape.kind == "prefill":
+        return prefill_input_specs(cfg, shape)
+    return decode_input_specs(cfg, shape)
+
+
+def make_concrete(specs: Dict[str, torch.Tensor], cfg: ModelConfig,
+                  seed: int = 0) -> Dict[str, torch.Tensor]:
+    """Random concrete inputs matching ``specs``, on the CPU, drawn in
+    order through one ``torch.Generator`` seeded with ``seed`` (the
+    reference's distributions, not its bits)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    out = {}
+    for name, s in specs.items():
+        if name in ("tokens", "token"):
+            out[name] = torch.randint(0, cfg.vocab_size, tuple(s.shape),
+                                      generator=gen, dtype=s.dtype)
+        elif name in ("patch_positions", "mrope_positions"):
+            # distinct in-range positions per row
+            n = s.shape[-1]
+            out[name] = torch.arange(n, dtype=s.dtype).expand(
+                tuple(s.shape)).clone()
+        elif name == "pos":
+            out[name] = torch.zeros((), dtype=s.dtype)
+        elif name == "kv_len":
+            out[name] = torch.ones(tuple(s.shape), dtype=s.dtype)
+        else:
+            out[name] = torch.randn(tuple(s.shape), generator=gen,
+                                    dtype=s.dtype) * 0.02
+    return out

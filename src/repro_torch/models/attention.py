@@ -395,7 +395,13 @@ def _write_at(cache_t: torch.Tensor, new: torch.Tensor,
               start: Union[int, torch.Tensor]) -> None:
     """``dynamic_update_slice(cache, new.astype(cache.dtype), (0, start,
     0))`` in place: positions [start, start + S) of every row (the cache
-    is ``max_len`` long, so the slice fits)."""
+    is ``max_len`` long, so the slice fits). A ``start`` on the meta
+    device (the dry run's trace) has no value to read: the write goes by
+    index, the same elements."""
+    if isinstance(start, torch.Tensor) and start.is_meta:
+        idx = start + torch.arange(new.shape[1], device=start.device)
+        cache_t[:, idx] = new.to(cache_t.dtype)
+        return
     start = int(start)
     cache_t[:, start:start + new.shape[1]] = new.to(cache_t.dtype)
 

@@ -20,6 +20,16 @@ their tokens. The reference computes the expert products with
 ``jax.lax.ragged_dot`` (XLA, not a Pallas kernel); here they are one
 ``torch.matmul`` per non-empty expert, which needs the group sizes on the
 host: one synchronisation per MoE layer.
+
+On the meta device (the dry run's trace, ``launch.steps.lower_*``) the
+group sizes do not exist, so the expert products take the counterpart of
+the reference's cost-mode branch (its ``REPRO_COST_MODE``): the sorted
+pairs, zero-padded to a multiple of E, as E equal groups through
+E-batched dense products (``torch.einsum``), which count the true
+``2 x T k x D x F`` FLOPs a product (and the padding's) and read every
+expert's weights once. The numbers differ from the dropless products'
+(there are none on meta). There is no switch: tokens on a real device
+always take the dropless path.
 """
 from __future__ import annotations
 
@@ -161,7 +171,24 @@ def _moe_local(p, x2: torch.Tensor, mo, act: str
     order = torch.argsort(flat_ids, stable=True)
     token_of = order // k                                    # source token
     xs = x2[token_of]                                        # (T*k, D) sorted
-    # the group sizes go to the host: one synchronisation per layer
+    y = _cost_products(p, xs, E, act) if xs.is_meta else \
+        _dropless_products(p, xs, flat_ids, E, act)
+    wsort = w.reshape(-1)[order]                             # (T*k,)
+    y = y * wsort[:, None].to(y.dtype)
+    out = torch.zeros((T, D), dtype=y.dtype, device=y.device)
+    out.index_add_(0, token_of, y)
+    return out, aux
+
+
+def _expert_act(g: torch.Tensor, u: torch.Tensor, act: str) -> torch.Tensor:
+    return F.silu(g) * u if act == "swiglu" else \
+        F.gelu(u + g, approximate="tanh")       # jax.nn.gelu's default
+
+
+def _dropless_products(p, xs: torch.Tensor, flat_ids: torch.Tensor, E: int,
+                       act: str) -> torch.Tensor:
+    """The expert MLP of each sorted pair: one matmul per non-empty
+    expert (the group sizes go to the host: one synchronisation)."""
     sizes = torch.bincount(flat_ids, minlength=E).tolist()
     y = torch.empty_like(xs)
     start = 0
@@ -169,17 +196,21 @@ def _moe_local(p, x2: torch.Tensor, mo, act: str
         if n == 0:
             continue
         seg = xs[start:start + n]
-        g = seg @ p["w_gate"][e]
-        u = seg @ p["w_up"][e]
-        h = F.silu(g) * u if act == "swiglu" else \
-            F.gelu(u + g, approximate="tanh")   # jax.nn.gelu's default
+        h = _expert_act(seg @ p["w_gate"][e], seg @ p["w_up"][e], act)
         y[start:start + n] = h @ p["w_down"][e]
         start += n
-    wsort = w.reshape(-1)[order]                             # (T*k,)
-    y = y * wsort[:, None].to(y.dtype)
-    out = torch.zeros((T, D), dtype=y.dtype, device=y.device)
-    out.index_add_(0, token_of, y)
-    return out, aux
+    return y
+
+
+def _cost_products(p, xs: torch.Tensor, E: int, act: str) -> torch.Tensor:
+    """The reference's cost-mode expert products (``_moe_local`` under
+    ``REPRO_COST_MODE``): the pairs padded to E equal groups, E-batched."""
+    Tk, D = xs.shape
+    xe = F.pad(xs, (0, 0, 0, (-Tk) % E)).reshape(E, -1, D)
+    h = _expert_act(torch.einsum("etd,edf->etf", xe, p["w_gate"]),
+                    torch.einsum("etd,edf->etf", xe, p["w_up"]), act)
+    y = torch.einsum("etf,efd->etd", h, p["w_down"])
+    return y.reshape(-1, D)[:Tk]
 
 
 def moe_apply(p, x: torch.Tensor, *, cfg: ModelConfig, mean_aux: bool = True

@@ -56,6 +56,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import os
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
@@ -236,7 +237,19 @@ def _norm(p: nn.ParameterDict, x: torch.Tensor, eps: float, *,
           backend: str) -> torch.Tensor:
     """LayerNorm (RWKV) when the norm has a bias, as plain float32 torch
     ops (it is jnp, not a Pallas kernel, in the reference); RMSNorm (K5 on
-    ``backend="cuda"``) otherwise."""
+    ``backend="cuda"``) otherwise.
+
+    Under ``REPRO_NORM_BF16`` (set by the dry run's ``nf32`` variant) the
+    statistics are taken in the activation dtype, as plain torch ops on
+    every backend: the reference's probe of a norm that does not promote
+    the preceding row-parallel sum to float32 (its numbers differ)."""
+    if os.environ.get("REPRO_NORM_BF16"):
+        mu = x.mean(-1, keepdim=True) if "bias" in p else 0.0
+        var = (x - mu).square().mean(-1, keepdim=True)
+        y = (x - mu) * torch.rsqrt(var + torch.full((), eps, dtype=x.dtype,
+                                                    device=x.device))
+        y = y * p["scale"]
+        return y + p["bias"] if "bias" in p else y
     if "bias" in p:
         xf = x.float()
         mu = xf.mean(-1, keepdim=True)
@@ -1011,6 +1024,33 @@ def param_spec(params: Dict[str, torch.Tensor], cfg: ModelConfig
         spec = _leaf_logical_spec(path, p.dim() + stacked, moe_paths)
         out[n] = shd.resolve_spec(p.shape, spec[int(stacked):])
     return out
+
+
+_CACHE_SPEC = {
+    # gqa cache (B, C, KV, Dh); mla (B, C, lora) / (B, C, dr)
+    "k": ("batch", "seq", "kv_heads", None),
+    "v": ("batch", "seq", "kv_heads", None),
+    "c": ("batch", "seq", None),
+    "kr": ("batch", "seq", None),
+    # ssm states
+    "last_x": ("batch", "embed"),
+    "state": ("batch", "heads", None, None),
+    "conv": ("batch", None, "ff"),
+    "h": ("batch", "ff", None),
+}
+
+
+def cache_spec(cache: Cache) -> List[Dict[str, Dict[str, Tuple]]]:
+    """Each cache leaf's resolved spec under the bound axis rules, by the
+    reference's rule on its leaf name (the list of per-layer dicts the
+    cache is, with a spec in place of each tensor)."""
+    def fn(name, leaf):
+        spec = tuple(_CACHE_SPEC.get(name, ()))
+        pad = leaf.dim() - len(spec)
+        spec = (None,) * leaf.dim() if pad < 0 else (None,) * pad + spec
+        return shd.resolve_spec(leaf.shape, spec)
+    return [{part: {n: fn(n, t) for n, t in leaves.items()}
+             for part, leaves in layer.items()} for layer in cache]
 
 
 def _block_kind(cfg: ModelConfig, name: str) -> Optional[LayerKind]:

@@ -21,7 +21,8 @@ element. At ``pod = 2`` the int8 ring sends 1.97x fewer bytes than bf16
 (1.0156 against 2), not the 3.9x ``repro.launch.compressed`` claims (3.94x
 is the ratio to a float32 all-reduce); at ``pod = 4`` it sends more than
 bf16 (3.05 against 3 bytes an element). :func:`wire_bytes` counts what
-this process sent.
+this process sent; the mesh's ``collective_bytes`` counts the same
+bytes as ``collective-permute``, the reference's ``ppermute``.
 
 **The ranks' results differ.** As in the reference, each rank adds its
 own gradient at full precision and the others' after quantization, so
@@ -110,16 +111,20 @@ def _int8_ring_all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     for _ in range(n_ranks - 1):
         q, s = _quantize(send)
         rq, rs = torch.empty_like(q), torch.empty_like(s)
-        reqs = dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, q, nxt, group, tag=0),
-            dist.P2POp(dist.isend, s, nxt, group, tag=1),
-            dist.P2POp(dist.irecv, rq, prv, group, tag=0),
-            dist.P2POp(dist.irecv, rs, prv, group, tag=1)])
+        ops = [dist.P2POp(dist.isend, q, nxt, group, tag=0),
+               dist.P2POp(dist.isend, s, nxt, group, tag=1),
+               dist.P2POp(dist.irecv, rq, prv, group, tag=0),
+               dist.P2POp(dist.irecv, rs, prv, group, tag=1)]
+        if q.is_meta:
+            # a traced step (the dry run): no backend batches meta tensors
+            reqs = [o.op(o.tensor, o.peer, o.group, o.tag) for o in ops]
+        else:
+            reqs = dist.batch_isend_irecv(ops)
         for r in reqs:
             r.wait()
-        _WIRE["bytes"] += q.numel() * q.element_size() + \
-            s.numel() * s.element_size()
-        mesh_lib.count("p2p", 4)
+        sent = mesh_lib.nbytes(q) + mesh_lib.nbytes(s)
+        _WIRE["bytes"] += sent
+        mesh_lib.count("p2p", 4, op="collective-permute", nbytes=sent)
         recv = _dequantize(rq, rs, n)
         acc = acc + recv
         send = recv

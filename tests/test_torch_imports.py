@@ -59,6 +59,10 @@ def test_torch_port_has_the_expected_files():
                  "src/repro_torch/launch/mesh.py",
                  "src/repro_torch/launch/sharding.py",
                  "src/repro_torch/launch/compressed.py",
+                 "src/repro_torch/launch/step_trace.py",
+                 "src/repro_torch/launch/roofline.py",
+                 "src/repro_torch/launch/dryrun.py",
+                 "src/repro_torch/launch/dryrun_variants.py",
                  "src/repro_torch/ckpt/checkpoint.py",
                  "src/repro_torch/optim/compress.py",
                  "src/repro_torch/optim/__init__.py",
@@ -161,6 +165,8 @@ def test_torch_port_runs_in_a_process_without_jax_or_repro():
         from repro_torch.fabric import advisor, simulator, trace
         from repro_torch.fabric import _reference
         from repro_torch.fabric.scenario import library
+        from repro_torch.launch import (compressed, dryrun, dryrun_variants,
+                                        roofline, step_trace)
         fit = trace.fit_trace(trace.load_trace("tests/traces/"
                                                "steady_trainers.json"))
         recs = advisor.advise(library.build("synchronization_amplification"),

@@ -15,8 +15,8 @@ per-layer leaf (``opt_state_spec`` of a one-leaf tree). Also: the MoE
 expert-stack rule, ``logical``'s rank check, ``named_sharding``'s
 placements, ``batch_axes`` / ``dp_size`` / ``mesh_config_for``,
 ``make_local_mesh()`` refusing to run without a process group, a
-``model`` axis larger than 1 taken for RWKV-6 and refused for the
-compressed step, ``sample_locality`` with and
+``model`` axis larger than 1 taken for RWKV-6 and by the compressed
+step on a model built on the mesh, ``sample_locality`` with and
 without a group, a one-rank ``gloo`` mesh, and the collectives counted
 and, when asked, timed.
 """
@@ -183,8 +183,10 @@ def test_torch_a_model_axis_larger_than_1_is_refused():
     whose ``model`` axis is 2 is taken now: ``require_supported`` passes,
     the model builds on the mesh with its time mix cut on heads, and
     ``make_train_step`` refuses only a model not built on that mesh. The
-    compressed step still refuses a ``model`` axis for any model (ROADMAP
-    Queue 1 item 11.5)."""
+    compressed step takes a ``model`` axis now (``tests/
+    test_torch_compressed_tp.py`` runs it on a model built on the mesh)
+    and refuses, as ``make_train_step`` does, a model not built on it; it
+    still refuses a mesh without a ``pod`` axis larger than 1."""
     from repro_torch.launch.compressed import make_compressed_train_step
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.api import build_model
@@ -200,7 +202,7 @@ def test_torch_a_model_axis_larger_than_1_is_refused():
     with pytest.raises(ValueError, match="built on it"):
         make_train_step(m, tconfigs.OptimizerConfig(), backend="torch",
                         mesh=tp)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(ValueError, match="built on it"):
         make_compressed_train_step(m, tconfigs.OptimizerConfig(), tp,
                                    backend="torch")
     with pytest.raises(ValueError, match="multi-pod"):

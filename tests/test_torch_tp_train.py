@@ -22,7 +22,8 @@ collectives of a step, counted; a checkpoint written by ``train(mesh=)``
 at ``(1, 2)`` restored bit for bit at ``(1, 1)`` and at ``(2, 2)``;
 ``(pod 2, data 1, model 2)``, whose batch axes' group is made by
 ``axes_group`` from ``dist.new_group``, giving the bits of ``(2, 2)``; the
-compressed step refusing a ``model`` axis of 2; ``train(mesh=)`` at
+compressed step refusing, on a ``model`` axis of 2, a model not built on
+the mesh; ``train(mesh=)`` at
 ``(1, 2)`` for all five configurations the slice ports
 (``stablelm-12b`` and ``qwen2-vl-2b`` too) against one process.
 """
@@ -622,6 +623,9 @@ def test_torch_tp_checkpoint_at_1x2_restores_at_2x2(runs):
 
 
 def test_torch_tp_the_compressed_step_refuses_a_model_axis():
+    """The compressed step runs under a ``model`` axis now
+    (``tests/test_torch_compressed_tp.py``); like ``make_train_step`` it
+    refuses a model not built on that mesh (it would hold whole leaves)."""
     from repro_torch.configs import OptimizerConfig
     from repro_torch.launch.compressed import make_compressed_train_step
     from repro_torch.models.api import build_model
@@ -629,7 +633,7 @@ def test_torch_tp_the_compressed_step_refuses_a_model_axis():
     m.init(SEED)
     m.requires_grad_(True)
     tp = types.SimpleNamespace(shape={"pod": 2, "data": 1, "model": 2})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(ValueError, match="built on it"):
         make_compressed_train_step(m, OptimizerConfig(), tp, backend="torch")
 
 

@@ -27,7 +27,11 @@ The counterpart of ``repro.kernels.xla_impl``. Two parts of it are here:
 - the single-token steps the reference leaves to XLA rather than to a
   Pallas kernel: decode attention over a KV cache
   (``decode_attention_xla`` there), the RWKV-6 decode step
-  (``wkv6_decode``) and the Mamba decode step (``mamba_decode``).
+  (``wkv6_decode``) and the Mamba decode step (``mamba_decode``). For
+  context-parallel decode, where the reference's GSPMD partitions that
+  softmax over the cache's sequence, :func:`decode_partial` takes one
+  block of the slots at its global offset and :func:`decode_merge`
+  merges the blocks' partials through a caller's all-reduce.
 """
 from __future__ import annotations
 
@@ -498,6 +502,72 @@ def decode_attention(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqs,bshd->bqhgd", p, vf)
     return out.reshape(B, 1, H, vf.shape[-1]).to(q.dtype)
+
+
+def partial_softmax(s: torch.Tensor, mask: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The pieces of a softmax over the last dim of float32 scores ``s``
+    that one block of keys contributes: (the weights ``exp(s - m)``
+    unnormalised, the block's max ``m`` and its sum of exponentials
+    ``l``, both with the last dim kept), the masked entries set to
+    ``NEG_INF`` first. ``NEG_INF`` is finite, so a block whose every entry
+    is masked has ``m = NEG_INF`` and ``l`` its length: its weight in
+    :func:`decode_merge`, ``exp(NEG_INF - M)``, is exactly 0."""
+    s = s.masked_fill(~mask, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    return p, m, p.sum(-1, keepdim=True)
+
+
+def decode_partial(
+    q: torch.Tensor,               # (B, 1, H, Dh) single new token
+    k_block: torch.Tensor,         # (B, L, KV, Dh) a block of the cache
+    v_block: torch.Tensor,         # (B, L, KV, Dv)
+    *,
+    kv_len: torch.Tensor,          # (B,) valid lengths (new token included)
+    offset: int,                   # the block's first global slot
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`decode_attention`'s scores over one block of the cache's
+    slots, ``[offset, offset + L)`` of the whole, the global slot masked
+    by ``kv_len``: (the float32 output unnormalised (B, 1, H, Dv), the
+    running max and the sum of exponentials (B, H, 1, 1) each), for
+    :func:`decode_merge`."""
+    B, _, H, Dh = q.shape
+    L, KV = k_block.shape[1], k_block.shape[2]
+    if H % KV:
+        raise ValueError(f"{H} query heads are not a multiple of {KV} kv "
+                         f"heads")
+    g = H // KV
+    scale = scale if scale is not None else Dh ** -0.5
+    dev = q.device
+    qg = (q.float() * scale).reshape(B, 1, KV, g, Dh)
+    s = torch.einsum("bqhgd,bshd->bhgqs", qg, k_block.float())
+    kpos = offset + torch.arange(L, device=dev)
+    mask = kpos[None, :] < kv_len.to(dev)[:, None]          # (B, L)
+    p, m, l = partial_softmax(s, mask[:, None, None, None, :])
+    o = torch.einsum("bhgqs,bshd->bqhgd", p, v_block.float())
+    Dv = v_block.shape[-1]
+    return (o.reshape(B, 1, H, Dv), m.reshape(B, H, 1, 1),
+            l.reshape(B, H, 1, 1))
+
+
+def decode_merge(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                 reduce: Callable[[torch.Tensor, str], torch.Tensor]
+                 ) -> torch.Tensor:
+    """Merge each rank's partial (``o`` (B, 1, H, Dv) unnormalised, ``m``
+    and ``l`` (B, H, 1, 1): :func:`decode_partial`) into the softmax
+    over every rank's slots, float32: the largest max over the ranks
+    (``reduce(t, "max")``, an in-place all-reduce), each rank's ``o`` and
+    ``l`` weighted by ``exp(m - M)`` and summed (``reduce(t, "sum")``,
+    one all-reduce of both), then divided."""
+    M = reduce(m.clone(), "max")
+    w = torch.exp(m - M)                                    # (B, H, 1, 1)
+    Dv = o.shape[-1]
+    part = torch.cat([o * w.permute(0, 2, 1, 3),
+                      (l * w).permute(0, 2, 1, 3)], -1).contiguous()
+    tot = reduce(part, "sum")
+    return tot[..., :Dv] / tot[..., Dv:]
 
 
 def wkv6_decode(

@@ -34,9 +34,15 @@ whole S x S work at any ``block_k``.
 A cell that fails, or that the port refuses, is recorded ``ok: false``
 with its error, as the reference records failures; the command prints a
 refused cell (``NotImplementedError``) as ``[REFUSED]`` and exits non-zero
-only for a cell that failed otherwise. The port refuses every ``long_500k``
-cell (its ``seq`` rule, context-parallel decode, is not carried out:
-``launch.sharding.check_rules``), and the ``seqkv`` variant.
+only for a cell that failed otherwise. The ``long_500k`` cells and the
+``seqkv`` variant's decode cells trace context-parallel decode (their
+``seq`` rule cuts each attention cache's sequence over ``data`` or
+``model``: ``launch.sharding.seq_cut``), the merge's all-reduces and the
+query's all-gather counted among the collectives. The ``seqkv`` variant's
+``train_4k`` and ``prefill_32k`` cells are refused (the rule would cut
+their activations' sequence: ROADMAP item 14.4), and a ``seqkv`` decode
+cell whose cache spec maps ``model`` twice (KV heads that the axis
+divides) fails with ``ValueError``, as the reference's fails.
 
 Results land in ``results/dryrun_torch/<arch>__<shape>__<mesh>[__variant]
 .json``. Run ``python -m repro_torch.launch.dryrun --mesh both`` (every

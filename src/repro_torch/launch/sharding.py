@@ -8,9 +8,20 @@ with the reference's ``PartitionSpec`` entries: ``None``, a mesh axis
 name, or a tuple of names. Resolution applies the same **divisibility
 fallback**: when a dim is not divisible by the product of its mapped axes'
 sizes, trailing axes are dropped until it is (else it replicates), and
-every fallback is recorded as ``(logical name, dim, divisor)``.
+every fallback is recorded as ``(logical name, dim, divisor)``; a spec
+that maps one mesh axis to two dimensions raises ``ValueError``, where
+the reference's ``PartitionSpec`` raises ``DuplicateSpecError``.
 ``axis_rules`` refuses an override that the port's layers do not carry
 out (:func:`check_rules`).
+
+Context-parallel decode: the ``seq`` rule bound to ``data`` (the dry
+run's ``long_500k`` cells) or to ``model`` (its ``seqkv`` variant) cuts a
+decode cache's sequence, as the reference's cache spec does;
+:func:`seq_cut` says how (the axes, this rank's block, their group), and
+the attention layers read it (``models.attention``: each rank's partial
+softmax over its block, merged over the axes). A prefill's or a train
+step's activations, whose sequence the reference cuts there too, are
+refused (:func:`require_whole_sequence`, ROADMAP item 14.4).
 ``resolve_spec`` reads only the mesh's axis sizes, so the bound mesh may
 be a ``DeviceMesh`` or anything with an ordered ``shape`` mapping (the
 production sizes, with no ranks behind them).
@@ -87,15 +98,15 @@ class _Ctx(threading.local):
 _ctx = _Ctx()
 
 
-# the ROADMAP.md item that carries out an override of each logical name
-_OVERRIDE_ITEM = {
-    "seq": "ROADMAP.md Queue 1 item 14.1 (context parallelism: the "
-           "sequence of the cache sharded, each rank's partial softmax "
-           "merged)",
-    "expert": "ROADMAP.md Queue 1 item 14.2 (expert parallelism)",
-}
+# the ROADMAP.md item of the overrides the layers do not carry out, and
+# of a sequence cut in the activations (a prefill's or a train step's)
 _OTHER_ITEM = ("ROADMAP.md Queue 1 item 14.3 (axis-rule overrides the "
                "layers do not read)")
+SEQ_ACTIVATIONS_ITEM = ("ROADMAP.md Queue 1 item 14.4 (the 'seq' rule in a "
+                        "prefill or a train step: the activations' sequence "
+                        "cut)")
+# the axes the 'seq' rule may bind: the cache's sequence cut over either
+SEQ_AXES = ("data", "model")
 
 
 def _bound_axes(rule, shape: Dict[str, int]) -> Tuple[str, ...]:
@@ -111,32 +122,40 @@ def check_rules(mesh, rules: Optional[Dict]) -> None:
     """Raise ``NotImplementedError`` for an override in ``rules`` that the
     port's layers do not carry out on ``mesh``.
 
-    The layers read no rule: they cut by :func:`model_axis`, the step
-    slices the batch over ``mesh.batch_axes`` (``pod`` and ``data``),
-    ZeRO-1 slices the moments over the same axes
-    (``optim.adamw.zero1_layout`` binds the default rules itself, and
-    ``opt_state_spec`` reads ``batch_axes``, not the ``ddp`` rule), and
-    ``transformer.tp_param_spec`` resolves the leaves' specs under the
-    default rules. So the overrides the port honors are those that bind
-    a logical name to the axes its default binds on this mesh (an axis
-    the mesh lacks counts as absent): e.g. ``{"batch": ("data",)}`` on a
-    ``(data, model)`` mesh, or ``{"heads": "model"}``. Every other
+    The layers read two rules: ``seq``, which cuts a decode cache's
+    sequence (:func:`seq_cut`; context-parallel decode), and none other:
+    they cut by :func:`model_axis`, the step slices the batch over
+    ``mesh.batch_axes`` (``pod`` and ``data``), ZeRO-1 slices the moments
+    over the same axes (``optim.adamw.zero1_layout`` binds the default
+    rules itself, and ``opt_state_spec`` reads ``batch_axes``, not the
+    ``ddp`` rule), and ``transformer.tp_param_spec`` resolves the leaves'
+    specs under the default rules. So the overrides the port honors are
+    ``seq`` bound to ``data`` or to ``model``; ``expert`` bound to
+    anything, which the reference reads nowhere either (its expert stacks
+    are specified by ``ff``), so that it changes nothing; and those that
+    bind a logical name to the axes its default binds on this mesh (an
+    axis the mesh lacks counts as absent): e.g. ``{"batch": ("data",)}``
+    on a ``(data, model)`` mesh, or ``{"heads": "model"}``. Every other
     override would have :func:`resolve_spec` describe a distribution the
-    step does not run, and is refused: ``seq`` or ``expert`` bound to an
-    axis, ``heads`` / ``kv_heads`` / ``ff`` / ``vocab`` mapped to anything
+    step does not run, and is refused: ``seq`` bound to ``pod`` or to two
+    axes, ``heads`` / ``kv_heads`` / ``ff`` / ``vocab`` mapped to anything
     but ``model``, ``batch`` or ``ddp`` off ``pod x data``, ``embed`` or
     ``state`` bound to an axis."""
     if not rules:
         return
     shape = mesh_shape(mesh)
     for name, rule in rules.items():
+        if name == "expert":
+            continue
+        got = _bound_axes(rule, shape)
+        if name == "seq" and len(got) <= 1 and set(got) <= set(SEQ_AXES):
+            continue
         want = _bound_axes(DEFAULT_RULES.get(name), shape)
-        if _bound_axes(rule, shape) != want:
+        if got != want:
             raise NotImplementedError(
                 f"axis rule {name!r} -> {rule!r} (the port binds "
                 f"{name!r} to {want or None} on this mesh): its layers "
-                f"do not carry it out ("
-                f"{_OVERRIDE_ITEM.get(name, _OTHER_ITEM)})")
+                f"do not carry it out ({_OTHER_ITEM})")
 
 
 @contextlib.contextmanager
@@ -258,7 +277,86 @@ def resolve_spec(shape: Sequence[int], spec: LogicalSpec) -> Spec:
             out.append(phys[0])
         else:
             out.append(tuple(phys))
+    seen = [a for e in out if e is not None
+            for a in ((e,) if isinstance(e, str) else e)]
+    for a in seen:
+        if seen.count(a) > 1:
+            # the reference's PartitionSpec raises DuplicateSpecError
+            raise ValueError(
+                f"mesh axis {a!r} is mapped to two dimensions of the spec "
+                f"{tuple(spec)} on shape {tuple(shape)} (resolved "
+                f"{tuple(out)})")
     return tuple(out)
+
+
+def _seq_bound(shape: Dict[str, int]) -> bool:
+    """Whether the bound rules cut a sequence over an axis of the mesh
+    larger than 1."""
+    return any(shape[a] > 1 for a in _mesh_axes_for("seq", shape))
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqAxis:
+    """The mesh axes a decode cache's sequence is cut on (the ``seq``
+    rule, resolved on the cache's whole shape): their size, this rank's
+    index on them (it holds block ``index`` of ``size`` contiguous blocks)
+    and their process group."""
+    axes: Tuple[str, ...]
+    size: int
+    index: int
+    group: Any
+
+
+def seq_cut(shape: Sequence[int], spec: LogicalSpec, *,
+            record: bool = True) -> Optional[SeqAxis]:
+    """How the bound ``seq`` rule cuts dimension 1, the sequence, of a
+    cache leaf of whole shape ``shape`` and logical ``spec``
+    (:func:`resolve_spec`:
+    a length the axes do not divide stays whole, the fallback recorded
+    unless ``record`` is false, as a decode step asks again every call;
+    a mesh axis mapped twice raises ``ValueError``). ``None`` where no
+    mesh is bound, ``seq`` binds no axis larger than 1, or the dim stays
+    whole."""
+    mesh = _ctx.mesh
+    if mesh is None or not _seq_bound(mesh_shape(mesh)):
+        return None
+    seen = len(_ctx.fallbacks)
+    e = resolve_spec(shape, spec)[1]
+    if not record:
+        del _ctx.fallbacks[seen:]
+    if e is None:
+        return None
+    axes = (e,) if isinstance(e, str) else tuple(e)
+    sizes = mesh_shape(mesh)
+    n = 1
+    for a in axes:
+        n *= sizes[a]
+    if n <= 1:
+        return None
+    held = mesh.__dict__.setdefault("_repro_seq_axes", {})
+    if axes not in held:
+        held[axes] = SeqAxis(axes, n, mesh_lib.coordinate(mesh, axes),
+                             mesh_lib.axes_group(mesh, axes))
+    return held[axes]
+
+
+def require_whole_sequence(batch: int, seq_len: int) -> None:
+    """Raise ``NotImplementedError`` where the bound ``seq`` rule would cut
+    the sequence of activations (``batch``, ``seq_len``, embed), as the
+    reference's ``logical(x, "batch", "seq", "embed")`` cuts a prefill's
+    and a train step's: the port cuts only a decode cache's sequence. A
+    decode step's one position stays whole (the fallback). Where the
+    batch and the sequence would be cut on the same axis,
+    :func:`resolve_spec`'s ``ValueError``."""
+    mesh = _ctx.mesh
+    if mesh is None or not _seq_bound(mesh_shape(mesh)):
+        return
+    e = resolve_spec((batch, seq_len), ("batch", "seq"))[1]
+    if e is not None:
+        raise NotImplementedError(
+            f"the 'seq' rule cuts the activations' sequence of {seq_len} "
+            f"over {e!r}: the port cuts only a decode cache's sequence "
+            f"({SEQ_ACTIVATIONS_ITEM})")
 
 
 def logical(x: torch.Tensor, *spec: Union[str, None, Tuple[str, ...]]):

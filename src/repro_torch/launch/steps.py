@@ -21,6 +21,13 @@ aux loss is averaged over the ranks, as the reference's ``shard_map``
 ZeRO-1 slice (``optim.adamw.Zero1``, the step's ``zero`` attribute: build
 the state with ``init_opt_state(cfg, params, step.zero)``).
 
+A bound ``seq`` rule (``launch.sharding.axis_rules(mesh, {"seq":
+"data"})``, around the steps) is context-parallel decode: the decode
+step runs on the rank's blocks of the attention caches
+(``Model.cut_cache`` of a prefill's cache, made under the default
+rules), and a prefill or train step whose sequence it would cut is
+refused (``NotImplementedError``, ROADMAP item 14.4).
+
 A ``model`` axis larger than 1 is tensor parallelism: the model must be
 built on the same mesh (``build_model(cfg, mesh=)``: it holds this rank's
 shards and runs its layers tensor parallel), and what it cannot split is
@@ -51,6 +58,7 @@ import torch
 
 from repro_torch.configs.base import OptimizerConfig, ShapeConfig
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import sharding as shd
 from repro_torch.launch.step_trace import StepTrace, trace_step
 from repro_torch.models import transformer as tfm
 from repro_torch.models.api import Model, input_specs
@@ -275,7 +283,10 @@ def trace_train(model: Model, opt_cfg: OptimizerConfig, mesh,
 def lower_train_step(model: Model, opt_cfg: OptimizerConfig, mesh,
                      shape: ShapeConfig, *, microbatches: int = 1
                      ) -> StepTrace:
-    """Trace one rank's ``make_train_step(mesh=)`` on the meta device."""
+    """Trace one rank's ``make_train_step(mesh=)`` on the meta device (a
+    bound ``seq`` rule that would cut its sequence refused:
+    ``launch.sharding.require_whole_sequence``)."""
+    shd.require_whole_sequence(shape.global_batch, shape.seq_len)
     return trace_train(model, opt_cfg, mesh, shape, lambda: make_train_step(
         model, opt_cfg, microbatches=microbatches, backend="torch",
         mesh=mesh))
@@ -290,7 +301,10 @@ def _serve_len(model: Model, shape: ShapeConfig) -> int:
 def lower_prefill_step(model: Model, mesh, shape: ShapeConfig
                        ) -> StepTrace:
     """Trace one rank's prefill of its slice of ``shape``'s batch, the
-    cache made for ``seq_len`` (half of it for an encoder-decoder)."""
+    cache made for ``seq_len`` (half of it for an encoder-decoder); a
+    bound ``seq`` rule that would cut its sequence refused
+    (``launch.sharding.require_whole_sequence``)."""
+    shd.require_whole_sequence(shape.global_batch, _serve_len(model, shape))
     _on_meta(model, mesh, False)
     specs = input_specs(model.cfg, shape)
     local = _rank_batch(specs, mesh)
@@ -305,8 +319,14 @@ def lower_prefill_step(model: Model, mesh, shape: ShapeConfig
 def lower_decode_step(model: Model, mesh, shape: ShapeConfig
                       ) -> StepTrace:
     """Trace one rank's decode step of its slice of ``shape``'s batch
-    against a cache of ``seq_len`` (half of it for an encoder-decoder)."""
+    against a cache of ``seq_len`` (half of it for an encoder-decoder):
+    under a bound ``seq`` rule, its block of each attention cache's
+    sequence (``Model.abstract_cache``), the partials merged. A batch and
+    a sequence that the rules would both cut on one axis raise
+    ``ValueError``, as the reference's spec does."""
     _on_meta(model, mesh, False)
+    shd.seq_cut((shape.global_batch, _serve_len(model, shape)),
+                ("batch", "seq"))
     specs = input_specs(model.cfg, shape)
     local = _rank_batch(specs, mesh)
     cache = model.abstract_cache(local["token"].shape[0],

@@ -25,7 +25,9 @@ device at the reference's shapes and dtypes, with :func:`make_concrete`
 to draw real ones.
 
 ``mesh`` (``launch.mesh``) is the mesh the model runs on: every method
-binds it (``launch.sharding.axis_rules``) for its call. On a mesh whose
+binds it (``launch.sharding.axis_rules``) for its call, under the
+default rules unless the caller has bound it with its own (a ``seq``
+rule for context-parallel decode: :meth:`Model.cut_cache`). On a mesh whose
 ``model`` axis is larger than 1 the model holds only this rank's shard
 of each parameter, as :attr:`Model.spec` gives it
 (``transformer.tp_param_spec``), and runs tensor parallel (every layer
@@ -135,9 +137,28 @@ class Model(nn.Module):
             return tfm.cache_spec(cache)
 
     def init_cache(self, batch: int, max_len: int) -> tfm.Cache:
+        """This rank's cache: its heads, and its block of each attention
+        cache's sequence under a bound ``seq`` rule."""
         with self.bound():
             return tfm.init_cache(self.cfg, batch, max_len,
                                   device=self.device)
+
+    def cut_cache(self, cache: tfm.Cache) -> tfm.Cache:
+        """This rank's block of each attention cache's sequence under the
+        bound ``seq`` rule, from the whole cache a prefill under the
+        default rules made (``transformer.cut_cache``): the counterpart of
+        the reference's ``jit(in_shardings=)`` resharding the prefill's
+        cache for the decode step. Bind the rules around it and the
+        decode steps: ``with axis_rules(mesh, {"seq": "data"}):``."""
+        with self.bound():
+            return tfm.cut_cache(cache, self.cfg)
+
+    def gather_cache(self, cache: tfm.Cache) -> tfm.Cache:
+        """The whole cache, as the default rules lay it out, from every
+        rank's blocks under the bound ``seq`` rule (every rank of the
+        cut's axes joins): the inverse of :meth:`cut_cache`."""
+        with self.bound():
+            return tfm.gather_cache(cache, self.cfg)
 
     def _p(self) -> tfm.Params:
         if self.params is None:

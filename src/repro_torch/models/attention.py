@@ -44,6 +44,22 @@ The latent reaches a rank's heads through ``copy_to_model`` (the normed
 q latent, ``c`` and ``kr``), not ``x``, so that the gradients of the
 whole leaves before it are summed over ``model``; train, prefill and
 the absorbed decode run at the local heads.
+
+Under a ``seq`` rule that cuts the cache's sequence
+(``launch.sharding.seq_cut``: context-parallel decode) a rank's cache,
+a :class:`SeqCache`, holds one contiguous block of the slots, and a
+decode step writes the new token on the rank whose block holds its
+slot, takes each rank's partial softmax over its block, the global slot
+masked by ``kv_len`` (``kernels.chunked.decode_partial``), and merges the
+partials over the cut's axes (``chunked.decode_merge``: an all-reduce of
+the maxima, one of the weighted sums). Where the sequence is cut on a
+``model`` axis that also cuts the query heads, the query (GQA's ``q``,
+MLA's absorbed ``q_lat`` and ``qr``) is gathered over ``model``, every
+head attends over the rank's block, and the rank keeps its own heads
+after the merge; a GQA cache then holds every KV head.
+:func:`cut_seq_cache` / :func:`gather_seq_cache` cut a whole cache to the
+rank's blocks and gather them back. The prefill and train modes run
+whole sequences only (``launch.sharding.require_whole_sequence``).
 """
 from __future__ import annotations
 
@@ -54,8 +70,9 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import chunked, ops
 from repro_torch.kernels.ref import NEG_INF
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sharding as shd
 from repro_torch.models.params import dense_init, ones, param, zeros
 from repro_torch.models.rope import apply_mrope, apply_rope
@@ -139,18 +156,175 @@ def cache_capacity(cfg: ModelConfig, max_len: int) -> int:
     return max_len
 
 
+# the reference's cache specs (``transformer._CACHE_SPEC``): GQA's k / v
+# (B, C, KV, Dh), MLA's c / kr (B, C, lora) and (B, C, dr)
+KV_CACHE_SPEC = ("batch", "seq", "kv_heads", None)
+LATENT_CACHE_SPEC = ("batch", "seq", None)
+
+
+class SeqCache(dict):
+    """A layer's attention cache (GQA's ``k`` / ``v``, MLA's ``c`` /
+    ``kr``: dim 1 the sequence) and ``capacity``, the length of the
+    whole sequence. Under a ``seq`` rule that cuts it
+    (:func:`launch.sharding.seq_cut`) a rank holds one contiguous block of
+    the slots, ``[index * capacity / n, (index + 1) * capacity / n)``, as
+    a NamedSharding lays it out; otherwise the whole sequence."""
+
+    def __init__(self, tensors: Dict[str, torch.Tensor], capacity: int):
+        super().__init__(tensors)
+        self.capacity = capacity
+
+
+def kv_seq_cut(cfg: ModelConfig, batch: int, capacity: int,
+               record: bool = True) -> Optional[shd.SeqAxis]:
+    """How the bound ``seq`` rule cuts a GQA cache of ``capacity`` slots
+    (the reference's spec on the whole leaf), ``None`` where it stays
+    whole (``launch.sharding.seq_cut``)."""
+    return shd.seq_cut((batch, capacity, cfg.padded_kv_heads(),
+                        cfg.resolved_head_dim()), KV_CACHE_SPEC,
+                       record=record)
+
+
+def _cache_kv_heads(cfg: ModelConfig, cut: Optional[shd.SeqAxis]
+                    ) -> Tuple[int, Optional[int]]:
+    """(KV heads, first KV head) the cache of this rank holds: its own
+    (:func:`local_heads`), or every KV head where the sequence is cut on
+    ``model`` (each rank attends all query heads over its block; the
+    reference leaves ``kv_heads`` whole there, as ``model`` cannot be
+    mapped twice, and every rank holds the whole KV projection)."""
+    if cut is not None and "model" in cut.axes:
+        return cfg.padded_kv_heads(), None
+    _, KV, kv0 = local_heads(cfg, shd.model_axis())
+    return KV, kv0
+
+
 def gqa_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-                   device=None) -> Dict[str, torch.Tensor]:
-    """Zeros for this rank's KV heads (:func:`local_heads`)."""
-    with shd.runs_whole(cfg.padded_heads()):
-        _, KV, _ = local_heads(cfg, shd.model_axis())
-    Dh = cfg.resolved_head_dim()
+                   device=None) -> SeqCache:
+    """Zeros for this rank's KV heads (:func:`local_heads`) and its block
+    of the sequence under a ``seq`` rule (:class:`SeqCache`)."""
     C = cache_capacity(cfg, max_len)
+    with shd.runs_whole(cfg.padded_heads()):
+        cut = kv_seq_cut(cfg, batch, C)
+        KV, _ = _cache_kv_heads(cfg, cut)
+    Dh = cfg.resolved_head_dim()
+    L = C if cut is None else C // cut.size
     dt = dtype or getattr(torch, cfg.dtype)
-    return {
-        "k": torch.zeros((batch, C, KV, Dh), dtype=dt, device=device),
-        "v": torch.zeros((batch, C, KV, Dh), dtype=dt, device=device),
-    }
+    return SeqCache({
+        "k": torch.zeros((batch, L, KV, Dh), dtype=dt, device=device),
+        "v": torch.zeros((batch, L, KV, Dh), dtype=dt, device=device),
+    }, C)
+
+
+def _part_cut(cfg: ModelConfig, part: SeqCache):
+    """(the cut of ``part``'s sequence, the KV heads a cut block holds and
+    its first, those the default rules lay out and their first; KV heads
+    ``None`` for MLA's latent cache)."""
+    if "c" in part:
+        return (latent_seq_cut(cfg, part["c"].shape[0], part.capacity),
+                None, None, None)
+    with shd.runs_whole(cfg.padded_heads()):
+        cut = kv_seq_cut(cfg, part["k"].shape[0], part.capacity)
+        KV, kv0 = _cache_kv_heads(cfg, cut)
+        _, KVd, kv0d = local_heads(cfg, shd.model_axis())
+        tp = shd.model_axis()
+    return cut, (KV, kv0), (KVd, kv0d), tp
+
+
+def cut_seq_cache(cfg: ModelConfig, part: SeqCache) -> SeqCache:
+    """This rank's block of a whole attention cache ``part`` (as a prefill
+    under the default rules leaves it) under the bound ``seq`` rule, a
+    copy; ``part`` itself where the rule does not cut it. Where the
+    sequence is cut on ``model`` and the rank held only its group's KV
+    head, every KV head is gathered over ``model`` first (each rank then
+    attends every query head over its block). The counterpart of the
+    reference's ``jit(in_shardings=)`` resharding a prefill's cache for
+    the decode step."""
+    cut, held, default, tp = _part_cut(cfg, part)
+    if cut is None and held == default:
+        return part
+    C = part.capacity
+    out = {}
+    for n, t in part.items():
+        if t.shape[1] != C:
+            raise ValueError(f"cut_seq_cache takes a whole cache: {n!r} "
+                             f"holds {t.shape[1]} of {C} slots")
+        if held is not None and held != default:
+            t = _every_kv_head(cfg, t, tp)
+        if cut is not None:
+            L = C // cut.size
+            t = t.narrow(1, cut.index * L, L)
+        out[n] = t.clone()
+    return SeqCache(out, C)
+
+
+def gather_seq_cache(cfg: ModelConfig, part: SeqCache) -> SeqCache:
+    """The whole attention cache, laid out as the default rules lay it out
+    (:func:`gqa_init_cache` without a ``seq`` rule), from every rank's
+    block under the bound ``seq`` rule: the inverse of
+    :func:`cut_seq_cache` (an all-gather over the cut's axes); ``part``
+    itself where the rule does not cut it."""
+    cut, held, default, _ = _part_cut(cfg, part)
+    if cut is None and held == default:
+        return part
+    out = {}
+    for n, t in part.items():
+        if cut is not None:
+            t = mesh_lib.all_gather(t, cut.group, 1)
+        if held is not None and held != default:
+            t = t.narrow(2, default[1], default[0]).contiguous()
+        out[n] = t
+    return SeqCache(out, part.capacity)
+
+
+def _every_kv_head(cfg: ModelConfig, t: torch.Tensor,
+                   tp: shd.ModelAxis) -> torch.Tensor:
+    """Every KV head of a cache leaf (B, C, 1, Dh) of which each rank of
+    ``model`` holds its query heads' group's head: gathered over
+    ``model``, each head taken from the first rank that holds it."""
+    H, KV = cfg.padded_heads(), cfg.padded_kv_heads()
+    Hl = H // tp.size
+    heads = [r * Hl // (H // KV) for r in range(tp.size)]
+    every = mesh_lib.all_gather(t, tp.group, 2)
+    return every[:, :, [heads.index(g) for g in range(KV)]]
+
+
+def _block(cache: Dict[str, torch.Tensor], name: str,
+           cut: Optional[shd.SeqAxis]) -> int:
+    """This rank's first slot of the cache's sequence; raises where the
+    cache does not hold the block the rule gives it (a whole cache under
+    the rule, or a block without it)."""
+    C = getattr(cache, "capacity", cache[name].shape[1])
+    L = C if cut is None else C // cut.size
+    if cache[name].shape[1] != L:
+        raise ValueError(
+            f"the cache's {name!r} holds {cache[name].shape[1]} slots of "
+            f"{C}; the bound 'seq' rule gives this rank {L}: cut the cache "
+            f"under the rule (Model.cut_cache)")
+    return 0 if cut is None else cut.index * L
+
+
+def _block_write(cache_t: torch.Tensor, new: torch.Tensor,
+                 pos: Union[int, torch.Tensor], capacity: int, start: int
+                 ) -> None:
+    """Write the one token ``new`` (B, 1, ...) at global slot ``pos %
+    capacity`` into this rank's block of the sequence, which starts at
+    ``start``, in place, on the rank whose block holds that slot only. A
+    ``pos`` on the meta device (the dry run's trace) has no value: the
+    write goes by index on the traced rank, as :func:`_write_at`'s."""
+    if isinstance(pos, torch.Tensor) and pos.is_meta:
+        idx = (pos % capacity - start).reshape(1)
+        cache_t[:, idx] = new.to(cache_t.dtype)
+        return
+    slot = int(pos) % capacity - start
+    if 0 <= slot < cache_t.shape[1]:
+        cache_t[:, slot] = new[:, 0].to(cache_t.dtype)
+
+
+def _merge(o, m, l, cut: shd.SeqAxis) -> torch.Tensor:
+    """The ranks' partials merged over ``cut``'s group
+    (``chunked.decode_merge``) through the counted collectives."""
+    return chunked.decode_merge(
+        o, m, l, lambda t, op: mesh_lib.all_reduce(t, cut.group, op))
 
 
 def _ring_write(cache_kv: torch.Tensor, new: torch.Tensor,
@@ -208,8 +382,14 @@ def _gqa_apply(
     ``copy_to_model``, so that its gradient, of which each rank computes
     its own query heads' part, is summed over ``model``."""
     B, S, D = x.shape
-    H, KV, kv0 = local_heads(cfg, shd.model_axis())
+    tp = shd.model_axis()
+    H, KV, kv0 = local_heads(cfg, tp)
     Dh = cfg.resolved_head_dim()
+    cut = None
+    if mode == "decode" and cache is not None:
+        C = getattr(cache, "capacity", cache["k"].shape[1])
+        cut = kv_seq_cut(cfg, B, C, record=False)
+        KV, kv0 = _cache_kv_heads(cfg, cut)
     kv = {n: p[n] for n in (("wk", "wv", "bk", "bv") if cfg.qkv_bias
                             else ("wk", "wv"))}
     if kv0 is not None:
@@ -244,21 +424,49 @@ def _gqa_apply(
         if S != 1 or cache is None:
             raise ValueError(f"decode takes one token and a cache, got "
                              f"S={S} and cache={cache is not None}")
-        ck = _ring_write(cache["k"], k, pos0)
-        cv = _ring_write(cache["v"], v, pos0)
-        C = ck.shape[1]
+        start = _block(cache, "k", cut)
         if kv_len is None:
             kv_len = torch.full((B,), int(pos0) + 1, dtype=torch.int32,
                                 device=x.device)
         eff_len = torch.clamp(kv_len, max=C)
-        out = ops.decode_attention(q, ck, cv, kv_len=eff_len,
-                                   backend=backend)
+        if cut is None:
+            ck = _ring_write(cache["k"], k, pos0)
+            cv = _ring_write(cache["v"], v, pos0)
+            out = ops.decode_attention(q, ck, cv, kv_len=eff_len,
+                                       backend=backend)
+        else:
+            out = _cp_decode(q, k, v, cache, pos0, eff_len, C, start, cut,
+                             tp, backend)
         new_cache = cache
     else:
         raise ValueError(mode)
 
     out = out.reshape(B, S, H * Dh)
     return shd.tp_row_matmul(out, p["wo"], "heads"), new_cache
+
+
+def _cp_decode(q, k, v, cache, pos0, kv_len, capacity: int, start: int,
+               cut: shd.SeqAxis, tp: Optional[shd.ModelAxis],
+               backend: str) -> torch.Tensor:
+    """Context-parallel GQA decode: the new token's k and v written on the
+    rank whose block holds its slot; each rank's partial softmax over its
+    block (the global slot masked by ``kv_len``), merged over the cut's
+    axes. Where the sequence is cut on a ``model`` axis that also cuts the
+    query heads, ``q`` is gathered over ``model`` first, the partials
+    taken for every head and this rank's heads kept after the merge."""
+    _block_write(cache["k"], k, pos0, capacity, start)
+    _block_write(cache["v"], v, pos0, capacity, start)
+    ops.check_backend(backend, q)
+    Hl = q.shape[2]
+    gather = tp is not None and "model" in cut.axes
+    if gather:
+        q = shd.gather_from_model(q, dim=2)
+    o, m, l = chunked.decode_partial(q, cache["k"], cache["v"],
+                                     kv_len=kv_len, offset=start)
+    out = _merge(o, m, l, cut)
+    if gather:
+        out = out.narrow(2, tp.index * Hl, Hl)
+    return out.to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -346,16 +554,29 @@ def mla_init(gen: torch.Generator, cfg: ModelConfig, *, device=None
     return nn.ParameterDict({k: param(v) for k, v in p.items()})
 
 
+def latent_seq_cut(cfg: ModelConfig, batch: int, capacity: int,
+                   record: bool = True) -> Optional[shd.SeqAxis]:
+    """How the bound ``seq`` rule cuts MLA's latent cache of ``capacity``
+    slots, ``None`` where it stays whole."""
+    return shd.seq_cut((batch, capacity, cfg.mla.kv_lora_rank),
+                       LATENT_CACHE_SPEC, record=record)
+
+
 def mla_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-                   device=None) -> Dict[str, torch.Tensor]:
+                   device=None) -> SeqCache:
+    """Zeros for the latent cache, whole on every rank of ``model``, and
+    this rank's block of the sequence under a ``seq`` rule
+    (:class:`SeqCache`)."""
     m = cfg.mla
     dt = dtype or getattr(torch, cfg.dtype)
-    return {
-        "c": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dt,
+    cut = latent_seq_cut(cfg, batch, max_len)
+    L = max_len if cut is None else max_len // cut.size
+    return SeqCache({
+        "c": torch.zeros((batch, L, m.kv_lora_rank), dtype=dt,
                          device=device),
-        "kr": torch.zeros((batch, max_len, m.qk_rope_head_dim), dtype=dt,
+        "kr": torch.zeros((batch, L, m.qk_rope_head_dim), dtype=dt,
                           device=device),
-    }
+    }, max_len)
 
 
 def _mla_q(p, x, cfg: ModelConfig, positions, B, S, *, backend: str):
@@ -464,10 +685,16 @@ def _mla_apply(
             raise ValueError(f"decode takes one token and a cache, got "
                              f"S={S} and cache={cache is not None}")
         c_new, kr_new = _mla_ckv(p, x, cfg, positions, B, S, backend=backend)
-        _write_at(cache["c"], c_new, pos0)
-        _write_at(cache["kr"], kr_new, pos0)
+        C = getattr(cache, "capacity", cache["c"].shape[1])
+        cut = latent_seq_cut(cfg, B, C, record=False)
+        start = _block(cache, "c", cut)
+        if cut is None:
+            _write_at(cache["c"], c_new, pos0)
+            _write_at(cache["kr"], kr_new, pos0)
+        else:
+            _block_write(cache["c"], c_new, pos0, C, start)
+            _block_write(cache["kr"], kr_new, pos0, C, start)
         cc, ckr = cache["c"], cache["kr"]
-        C = cc.shape[1]
         if kv_len is None:
             kv_len = torch.full((B,), int(pos0) + 1, dtype=torch.int32,
                                 device=x.device)
@@ -478,14 +705,28 @@ def _mla_apply(
         w_uv = wkv_b[..., dn:]                               # (lora, H, dv)
         ccf = cc.float()
         q_lat = torch.einsum("bqhd,lhd->bqhl", qn.float(), w_uk.float())
+        qrf = qr.float()
+        tp = shd.model_axis()
+        gather = cut is not None and tp is not None and "model" in cut.axes
+        if gather:
+            # every head's query over this rank's block of the slots
+            both = shd.gather_from_model(torch.cat([q_lat, qrf], -1), 2)
+            q_lat, qrf = both[..., :m.kv_lora_rank], both[..., m.kv_lora_rank:]
         s = (torch.einsum("bqhl,bsl->bhqs", q_lat, ccf) +
-             torch.einsum("bqhd,bsd->bhqs", qr.float(), ckr.float())
+             torch.einsum("bqhd,bsd->bhqs", qrf, ckr.float())
              ) * scale                                       # (B,H,1,C)
-        mask = torch.arange(C, device=x.device)[None, :] < \
-            kv_len.to(x.device)[:, None]                     # (B, C)
-        s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
-        w = torch.softmax(s, dim=-1)
-        o_lat = torch.einsum("bhqs,bsl->bqhl", w, ccf)
+        kpos = start + torch.arange(cc.shape[1], device=x.device)
+        mask = kpos[None, :] < kv_len.to(x.device)[:, None]  # (B, C)
+        if cut is None:
+            s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
+            w = torch.softmax(s, dim=-1)
+            o_lat = torch.einsum("bhqs,bsl->bqhl", w, ccf)
+        else:
+            w, mx, l = chunked.partial_softmax(s, mask[:, None, None, :])
+            o_lat = _merge(torch.einsum("bhqs,bsl->bqhl", w, ccf), mx, l,
+                           cut)
+            if gather:
+                o_lat = o_lat.narrow(2, tp.index * H, H)
         out = torch.einsum("bqhl,lhd->bqhd", o_lat,
                            w_uv.float()).to(x.dtype)
         new_cache = cache

@@ -542,6 +542,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None
 # ---------------------------------------------------------------------------
 
 
+def _map_seq_caches(cache: Cache, fn) -> Cache:
+    """``cache`` with ``fn`` applied to each layer's attention cache
+    (``attention.SeqCache``); the SSM states, which have no sequence, as
+    they are."""
+    return [{part: fn(leaves) if isinstance(leaves, attn.SeqCache)
+             else leaves for part, leaves in layer.items()}
+            for layer in cache]
+
+
+def cut_cache(cache: Cache, cfg: ModelConfig) -> Cache:
+    """Each rank's block of a whole cache under the bound ``seq`` rule
+    (``attention.cut_seq_cache``)."""
+    return _map_seq_caches(cache, lambda c: attn.cut_seq_cache(cfg, c))
+
+
+def gather_cache(cache: Cache, cfg: ModelConfig) -> Cache:
+    """The whole cache from every rank's block under the bound ``seq``
+    rule (``attention.gather_seq_cache``)."""
+    return _map_seq_caches(cache, lambda c: attn.gather_seq_cache(cfg, c))
+
+
 def _lookup(p: Params, cfg: ModelConfig, tokens: torch.Tensor
             ) -> torch.Tensor:
     """The embedding rows of ``tokens`` in ``cfg.dtype``. The reference's
@@ -707,6 +728,7 @@ def encode(p: Params, cfg: ModelConfig, enc_embeds: torch.Tensor, *,
     """The encoder from precomputed frame embeddings (B, S_enc, D) (the
     audio stub): + ``pos_embed``, the non-causal stack, ``enc_norm``.
     Returns the memory (B, S_enc, D) in ``cfg.dtype``."""
+    shd.require_whole_sequence(*enc_embeds.shape[:2])
     x, positions = _embed_frames(p, cfg, enc_embeds)
     x, _, _ = _run_stack(p, x, cfg=cfg, positions=positions, pos0=0,
                          mode="train", cache=None, kv_len=None,
@@ -732,9 +754,14 @@ def forward(
     mrope_positions (3,B,S). ``pos0`` is the position of ``tokens[:, 0]``
     for the cache write (read from ``positions`` when not given, 0
     without them). With ``head=False`` the logits are the normed hidden
-    state (the chunked loss applies the head itself)."""
+    state (the chunked loss applies the head itself). A ``seq`` rule
+    that would cut a train or prefill pass's sequence is refused
+    (``launch.sharding.require_whole_sequence``): the port cuts only a
+    decode cache's."""
     tokens = batch["tokens"]
     B, S = tokens.shape
+    if mode != "decode":
+        shd.require_whole_sequence(B, S)
     positions = batch.get("positions")
     if positions is None:
         positions = positions_for(B, S, device=tokens.device)
@@ -1028,10 +1055,10 @@ def param_spec(params: Dict[str, torch.Tensor], cfg: ModelConfig
 
 _CACHE_SPEC = {
     # gqa cache (B, C, KV, Dh); mla (B, C, lora) / (B, C, dr)
-    "k": ("batch", "seq", "kv_heads", None),
-    "v": ("batch", "seq", "kv_heads", None),
-    "c": ("batch", "seq", None),
-    "kr": ("batch", "seq", None),
+    "k": attn.KV_CACHE_SPEC,
+    "v": attn.KV_CACHE_SPEC,
+    "c": attn.LATENT_CACHE_SPEC,
+    "kr": attn.LATENT_CACHE_SPEC,
     # ssm states
     "last_x": ("batch", "embed"),
     "state": ("batch", "heads", None, None),
@@ -1043,13 +1070,18 @@ _CACHE_SPEC = {
 def cache_spec(cache: Cache) -> List[Dict[str, Dict[str, Tuple]]]:
     """Each cache leaf's resolved spec under the bound axis rules, by the
     reference's rule on its leaf name (the list of per-layer dicts the
-    cache is, with a spec in place of each tensor)."""
-    def fn(name, leaf):
+    cache is, with a spec in place of each tensor), on the leaf's whole
+    shape (an attention cache's whole sequence: ``SeqCache.capacity``)."""
+    def fn(name, leaf, capacity):
         spec = tuple(_CACHE_SPEC.get(name, ()))
         pad = leaf.dim() - len(spec)
         spec = (None,) * leaf.dim() if pad < 0 else (None,) * pad + spec
-        return shd.resolve_spec(leaf.shape, spec)
-    return [{part: {n: fn(n, t) for n, t in leaves.items()}
+        shape = list(leaf.shape)
+        if capacity is not None:
+            shape[1] = capacity
+        return shd.resolve_spec(shape, spec)
+    return [{part: {n: fn(n, t, getattr(leaves, "capacity", None))
+                    for n, t in leaves.items()}
              for part, leaves in layer.items()} for layer in cache]
 
 

@@ -15,8 +15,8 @@ fake process group of 256 and of 512 ranks, which must not outlive its
 process; Jamba's cells, most of the time, in processes of their own):
 every smoke configuration's ``train_4k`` cell ``ok`` on the 16 x 16 and
 the 2 x 16 x 16 mesh, with its terms and collectives, and ``long_500k``
-and the ``seqkv`` variant recorded ``ok: false`` with the
-``NotImplementedError`` of their ``seq`` rule.
+and the ``seqkv`` variant ``ok``, their decode's collectives those of the
+same decode without the rule plus the merge's all-reduces.
 """
 import json
 import os
@@ -202,11 +202,16 @@ def _cells(mesh_name, group, out):
     res = {a: dryrun.run_cell(a, "train_4k", multi_pod=multi, save=False)
            for a in GROUPS[group]}
     if group == "rest":
-        res["long_500k"] = dryrun.run_cell("rwkv6-3b", "long_500k",
+        # each beside the same decode without the seq rule
+        res["long_500k"] = dryrun.run_cell("mixtral-8x7b", "long_500k",
                                            multi_pod=multi, save=False)
+        res["long_500k_plain"] = dryrun.run_cell(
+            "mixtral-8x7b", "decode_32k", multi_pod=multi, save=False)
         res["seqkv"] = dryrun.run_cell("qwen2-7b", "decode_32k",
                                        multi_pod=multi, variant="seqkv",
                                        save=False)
+        res["seqkv_plain"] = dryrun.run_cell("qwen2-7b", "decode_32k",
+                                             multi_pod=multi, save=False)
     pathlib.Path(out).write_text(json.dumps(res, default=str))
 
 
@@ -247,11 +252,22 @@ def test_torch_every_smoke_train_cell_is_ok(cells, mesh, arch):
 
 @pytest.mark.parametrize("mesh", ["single", "multi"])
 @pytest.mark.parametrize("cell", ["long_500k", "seqkv"])
-def test_torch_long_500k_and_seqkv_are_refused(cells, mesh, cell):
-    r = cells[mesh][cell]
-    assert r["ok"] is False
-    assert r["error"].startswith("NotImplementedError")
-    assert "'seq'" in r["error"] and "item 14.1" in r["error"]
+def test_torch_long_500k_and_seqkv_are_ok(cells, mesh, cell):
+    """The smoke Mixtral's ``long_500k`` (its 64-slot window cut into 4
+    slots a rank over ``data``) and the smoke Qwen2's ``decode_32k`` under
+    ``seqkv`` (32,768 slots cut over ``model``) trace: the same decode's
+    collectives as without the rule, plus the merge's two all-reduces
+    (a max and a sum) in each of the 2 layers; both smoke models' 4 heads
+    run whole at ``model 16``, so no ``q`` is gathered."""
+    r, plain = cells[mesh][cell], cells[mesh][cell + "_plain"]
+    assert r["ok"], r.get("traceback")
+    assert plain["ok"], plain.get("traceback")
+    counts, want = r["collectives"]["counts"], plain["collectives"]["counts"]
+    assert counts["all_reduce"] == want["all_reduce"] + 2 * 2
+    assert counts.get("all_gather", 0) == want.get("all_gather", 0)
+    by_op = r["collectives"]["bytes_by_op"]
+    assert by_op["all-reduce"] > 0
+    assert r["roofline"]["flops_per_device"] > 0
 
 
 if __name__ == "__main__":

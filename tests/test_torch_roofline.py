@@ -248,10 +248,6 @@ SINGLE = ((16, 16), ("data", "model"))
 MULTI = ((2, 16, 16), ("pod", "data", "model"))
 
 REFUSED = [
-    ({"seq": "data"}, "item 14.1"),
-    ({"seq": "model"}, "item 14.1"),
-    ({"expert": "model"}, "item 14.2"),
-    ({"expert": ("data",)}, "item 14.2"),
     ({"heads": None}, "item 14.3"),
     ({"heads": "data"}, "item 14.3"),
     ({"kv_heads": "data"}, "item 14.3"),
@@ -283,6 +279,12 @@ HONORED = [
     (MULTI, {"unknown": None}),
     (MULTI, None),
     (MULTI, {}),
+    # context-parallel decode (the long_500k cells, the seqkv variant)
+    (MULTI, {"seq": "data"}),
+    (MULTI, {"seq": "model"}),
+    # the reference reads no expert rule: it changes nothing
+    (MULTI, {"expert": "model"}),
+    (MULTI, {"expert": ("data",)}),
 ]
 
 
@@ -291,18 +293,45 @@ def test_torch_axis_rules_take_the_overrides_the_layers_honor(mesh, rules):
     with shd.axis_rules(stand_in(*mesh), rules):
         assert shd.resolve_spec((64, 32), ("heads", "embed")) == \
             ("model", None)
+    if rules and "expert" in rules:
+        # the parameters' specs are those of the default rules
+        cfg = tconfigs.get_model_config("mixtral-8x7b")
+        assert _spec_under(cfg, stand_in(*mesh), rules) == \
+            _spec_under(cfg, stand_in(*mesh), None)
 
 
-def test_torch_dryrun_refuses_long_500k_and_seqkv_by_their_rules():
+def _spec_under(cfg, mesh, rules):
+    """``transformer.param_spec`` on the whole leaves under ``rules``."""
+    from repro_torch.models import transformer as tfm
+    with torch.device("meta"):
+        named = dict(tfm.init_params(cfg, torch.Generator(),
+                                     device="meta").named_parameters())
+    with shd.axis_rules(mesh, rules):
+        return tfm.param_spec(named, cfg)
+
+
+def test_torch_decode_takes_the_seq_rules_and_prefill_and_train_refuse_them():
+    """The ``long_500k`` and ``seqkv`` rules bind; a decode step's one
+    position is not cut, while a prefill's and a train step's sequence
+    would be, and is refused naming item 14.4; where the batch and the
+    sequence both map to ``data``, the spec's ``ValueError``."""
     from repro_torch.launch.dryrun import apply_variant, cell_rules
     assert cell_rules("long_500k") == {"seq": "data"}
     assert cell_rules("train_4k") is None
     *_, rules, _ = apply_variant(tconfigs.get_model_config("qwen2-7b"),
                                  "seqkv")
+    assert rules == {"seq": "model"}
     for r in (cell_rules("long_500k"), rules):
-        with pytest.raises(NotImplementedError, match="context parallel"):
-            with shd.axis_rules(stand_in(*SINGLE), r):
-                pass
+        with shd.axis_rules(stand_in(*SINGLE), r):
+            shd.require_whole_sequence(1, 1)             # decode
+            shd.require_whole_sequence(128, 1)
+            for B, S in ((1, 524288), (32, 32768), (256, 4096)):
+                if r["seq"] == "data" and B % 16 == 0:
+                    with pytest.raises(ValueError, match="'data'"):
+                        shd.require_whole_sequence(B, S)
+                    continue
+                with pytest.raises(NotImplementedError, match="item 14.4"):
+                    shd.require_whole_sequence(B, S)
 
 
 if __name__ == "__main__":

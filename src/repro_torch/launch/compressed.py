@@ -45,7 +45,8 @@ import torch.distributed as dist
 from repro_torch.configs.base import OptimizerConfig, ShapeConfig
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sharding as shd
-from repro_torch.launch.steps import (_grads, _local, require_model_on,
+from repro_torch.launch.steps import (_batch_size, _grads, _rank_batch,
+                                      batch_cut, require_model_on,
                                       trace_train)
 from repro_torch.models import transformer as tfm
 from repro_torch.models.api import Model
@@ -74,16 +75,19 @@ def make_compressed_train_step(model: Model, opt_cfg: OptimizerConfig,
         raise ValueError("the model's parameters do not require grad: call "
                          "model.requires_grad_(True) before training")
     decay = decay_mask(model.cfg, params)
-    axes = mesh_lib.batch_axes(mesh)
-    dp, idx = mesh_lib.dp_size(mesh), mesh_lib.coordinate(mesh, axes)
     shards = model_shards(model.spec, mesh)
     pod_group = mesh_lib.axes_group(mesh, ("pod",))
     model_group = None if shards is None else shards.group
 
     def step(opt_state, batch):
+        B = _batch_size(batch)
+        if "pod" not in batch_cut(mesh, B)[0]:
+            # the reference's shard_map takes the batch cut on 'pod'
+            raise ValueError(f"a batch of {B} does not split over the "
+                             f"{shape['pod']} ranks of 'pod'")
+        local = _rank_batch(batch, mesh)
         with shd.manual(("pod",)):
-            grads, metrics = _grads(model, params, _local(batch, dp, idx),
-                                    backend)
+            grads, metrics = _grads(model, params, local, backend)
         # the pod's gradient (its data-axis mean), then the int8 pod ring,
         # each on this rank's shard
         grads = hierarchical_grad_reduce(grads, mesh=mesh)

@@ -38,11 +38,14 @@ only for a cell that failed otherwise. The ``long_500k`` cells and the
 ``seqkv`` variant's decode cells trace context-parallel decode (their
 ``seq`` rule cuts each attention cache's sequence over ``data`` or
 ``model``: ``launch.sharding.seq_cut``), the merge's all-reduces and the
-query's all-gather counted among the collectives. The ``seqkv`` variant's
-``train_4k`` and ``prefill_32k`` cells are refused (the rule would cut
-their activations' sequence: ROADMAP item 14.4), and a ``seqkv`` decode
-cell whose cache spec maps ``model`` twice (KV heads that the axis
-divides) fails with ``ValueError``, as the reference's fails.
+query's all-gather counted among the collectives. The ``long_500k``
+cells stay decode cells, as in the reference. The ``seqkv`` variant's
+``train_4k`` and ``prefill_32k`` cells fail with ``ValueError``, as the
+reference's fail with ``DuplicateSpecError``: the logits' spec
+``("batch", "seq", "vocab")`` maps ``model`` twice wherever the axis
+divides the padded vocabulary, which every configuration's does
+(``launch.sharding.activation_axes``); so does a ``seqkv`` decode cell
+whose cache spec maps ``model`` twice (KV heads that the axis divides).
 
 Results land in ``results/dryrun_torch/<arch>__<shape>__<mesh>[__variant]
 .json``. Run ``python -m repro_torch.launch.dryrun --mesh both`` (every

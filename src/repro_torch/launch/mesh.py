@@ -260,21 +260,26 @@ def axes_group(mesh, axes: Sequence[str]):
 
 def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """``x`` summed (or its elementwise maximum, ``op="max"``) over
-    ``group``, in place; counted as an ``all_reduce``."""
+    ``group``, in place; counted as an ``all_reduce``. A tensor on the
+    meta device (the dry run's trace) has no values: it is counted, and
+    nothing is sent."""
     with _Timed(x):
-        dist.all_reduce(x, op=dist.ReduceOp.SUM if op == "sum"
-                        else dist.ReduceOp.MAX, group=group)
+        if not x.is_meta:
+            dist.all_reduce(x, op=dist.ReduceOp.SUM if op == "sum"
+                            else dist.ReduceOp.MAX, group=group)
     count("all_reduce", op="all-reduce", nbytes=nbytes(x))
     return x
 
 
 def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """Every rank's ``x`` of ``group``, concatenated along ``dim`` in the
-    group's rank order; counted as an ``all_gather``."""
+    group's rank order; counted as an ``all_gather`` (on the meta device,
+    shaped and counted, nothing sent: :func:`all_reduce`)."""
     x = x.contiguous()
     parts: List[torch.Tensor] = [torch.empty_like(x)
                                  for _ in range(dist.get_world_size(group))]
     with _Timed(x):
-        dist.all_gather(parts, x, group=group)
+        if not x.is_meta:
+            dist.all_gather(parts, x, group=group)
     count("all_gather", op="all-gather", nbytes=nbytes(x))
     return torch.cat(parts, dim=dim)

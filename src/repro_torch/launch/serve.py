@@ -16,8 +16,14 @@ for by name: ``device="cpu", backend="torch"``.
 it, as the reference's ``generate(mesh=)``: the model is built on the
 mesh (tensor parallel over a ``model`` axis larger than 1, each rank
 holding its shards), each rank serves its slice of the request batch by
-its coordinate on ``pod x data``, and the tokens are gathered over those
-axes at the end, so every rank returns the whole batch.
+its coordinate on the axes its resolved spec cuts it on (``pod x data``
+where they divide it; the whole batch where none does, as the reference
+replicates it), and the tokens are gathered over those axes at the end,
+so every rank returns the whole batch. Under rules the caller binds on
+the mesh (``launch.sharding.axis_rules(mesh, {"seq": "data"})`` around
+the call) a batch that does not divide is context parallel: each rank
+prefills its block of the prompt (``models.transformer.forward``) into
+its blocks of the cache, which the decode steps then run on.
 
 Run it as ``PYTHONPATH=src python -m repro_torch.launch.serve`` (smoke
 configuration, seeded random weights); under ``torchrun`` it serves over
@@ -38,7 +44,7 @@ import torch.distributed as dist
 from repro_torch.configs import PacingConfig, get_model_config
 from repro_torch.core import CoordinationAgent
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.launch.steps import (_local, make_decode_step,
+from repro_torch.launch.steps import (_local, batch_cut, make_decode_step,
                                       make_prefill_step)
 from repro_torch.models.api import Model, build_model
 
@@ -94,10 +100,10 @@ def generate(
     if not isinstance(prompt_tokens, torch.Tensor):
         prompt_tokens = torch.from_numpy(np.asarray(prompt_tokens))
     tokens = prompt_tokens.to(device=dev, dtype=torch.long)
-    dp = 1 if mesh is None else mesh_lib.dp_size(mesh)
+    axes, dp, idx = ((), 1, 0) if mesh is None else \
+        batch_cut(mesh, tokens.shape[0])
     if dp > 1:
-        batch_group = mesh_lib.axes_group(mesh, mesh_lib.batch_axes(mesh))
-        idx = mesh_lib.coordinate(mesh, mesh_lib.batch_axes(mesh))
+        batch_group = mesh_lib.axes_group(mesh, axes)
         tokens = _local({"tokens": tokens}, dp, idx)["tokens"]
         if enc_embeds is not None:
             enc_embeds = _local({"e": torch.as_tensor(enc_embeds)}, dp,

@@ -14,14 +14,26 @@ the reference's ``PartitionSpec`` raises ``DuplicateSpecError``.
 ``axis_rules`` refuses an override that the port's layers do not carry
 out (:func:`check_rules`).
 
-Context-parallel decode: the ``seq`` rule bound to ``data`` (the dry
-run's ``long_500k`` cells) or to ``model`` (its ``seqkv`` variant) cuts a
+Context parallelism: the ``seq`` rule bound to ``data`` (the dry run's
+``long_500k`` cells) or to ``model`` (its ``seqkv`` variant) cuts a
 decode cache's sequence, as the reference's cache spec does;
 :func:`seq_cut` says how (the axes, this rank's block, their group), and
 the attention layers read it (``models.attention``: each rank's partial
-softmax over its block, merged over the axes). A prefill's or a train
-step's activations, whose sequence the reference cuts there too, are
-refused (:func:`require_whole_sequence`, ROADMAP item 14.4).
+softmax over its block, merged over the axes). In a prefill or a train
+step the rule cuts the activations' sequence, as the reference's
+``logical(x, "batch", "seq", "embed")`` does where the batch falls back:
+:func:`activation_axes` resolves the cut as the reference's logits
+constraint ``("batch", "seq", "vocab")`` would (``ValueError`` where it
+maps one axis twice, the reference's ``DuplicateSpecError``),
+:func:`activation_cut` gives this rank's :class:`SeqBlock`, and
+:func:`cut_sequence` binds it for the layers (:func:`seq_block`), which
+see the rest of the sequence through :func:`gather_seq` (an all-gather
+whose backward sums the gradients over the axis), :func:`halo` (the
+previous block's last rows) and :func:`relay_scan` (a recurrence's state
+handed from block to block); :func:`sum_over_seq` makes a loss the whole
+sequence's. Only a cut over ``data`` beside a batch that falls back
+whole is carried out; the others the reference runs are refused
+(``NotImplementedError``, ROADMAP item 14.5).
 ``resolve_spec`` reads only the mesh's axis sizes, so the bound mesh may
 be a ``DeviceMesh`` or anything with an ordered ``shape`` mapping (the
 production sizes, with no ranks behind them).
@@ -60,7 +72,8 @@ import contextlib
 import dataclasses
 import os
 import threading
-from typing import Any, Dict, FrozenSet, List, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Dict, FrozenSet, List, Optional,
+                    Sequence, Tuple, Union)
 
 import torch
 
@@ -93,6 +106,7 @@ class _Ctx(threading.local):
         self.rules: Optional[Dict[str, Union[str, Tuple[str, ...]]]] = None
         self.fallbacks: List[Tuple[str, int, int]] = []
         self.manual: FrozenSet[str] = frozenset()
+        self.block: Optional["SeqBlock"] = None
 
 
 _ctx = _Ctx()
@@ -102,9 +116,9 @@ _ctx = _Ctx()
 # of a sequence cut in the activations (a prefill's or a train step's)
 _OTHER_ITEM = ("ROADMAP.md Queue 1 item 14.3 (axis-rule overrides the "
                "layers do not read)")
-SEQ_ACTIVATIONS_ITEM = ("ROADMAP.md Queue 1 item 14.4 (the 'seq' rule in a "
-                        "prefill or a train step: the activations' sequence "
-                        "cut)")
+SEQ_ACTIVATIONS_ITEM = ("ROADMAP.md Queue 1 item 14.5 (the activations' "
+                        "sequence cut over 'model', or beside a batch cut "
+                        "over 'pod')")
 # the axes the 'seq' rule may bind: the cache's sequence cut over either
 SEQ_AXES = ("data", "model")
 
@@ -210,20 +224,20 @@ def runs_whole(width: int):
     return manual(("model",))
 
 
-def current() -> Tuple[Any, Any, FrozenSet[str]]:
-    """The binding in force: (mesh, rules, manual axes)."""
-    return _ctx.mesh, _ctx.rules, _ctx.manual
+def current() -> Tuple[Any, Any, FrozenSet[str], Optional["SeqBlock"]]:
+    """The binding in force: (mesh, rules, manual axes, sequence block)."""
+    return _ctx.mesh, _ctx.rules, _ctx.manual, _ctx.block
 
 
 @contextlib.contextmanager
-def restored(state: Tuple[Any, Any, FrozenSet[str]]):
+def restored(state: Tuple[Any, Any, FrozenSet[str], Optional["SeqBlock"]]):
     """Bind what :func:`current` returned, for the duration."""
     prev = current()
-    _ctx.mesh, _ctx.rules, _ctx.manual = state
+    _ctx.mesh, _ctx.rules, _ctx.manual, _ctx.block = state
     try:
         yield
     finally:
-        _ctx.mesh, _ctx.rules, _ctx.manual = prev
+        _ctx.mesh, _ctx.rules, _ctx.manual, _ctx.block = prev
 
 
 def fallbacks() -> List[Tuple[str, int, int]]:
@@ -289,6 +303,16 @@ def resolve_spec(shape: Sequence[int], spec: LogicalSpec) -> Spec:
     return tuple(out)
 
 
+def _resolve_unrecorded(shape: Sequence[int], spec: LogicalSpec) -> Spec:
+    """:func:`resolve_spec` with its fallbacks left out of
+    :func:`fallbacks`, for a question asked again on every call."""
+    seen = len(_ctx.fallbacks)
+    try:
+        return resolve_spec(shape, spec)
+    finally:
+        del _ctx.fallbacks[seen:]
+
+
 def _seq_bound(shape: Dict[str, int]) -> bool:
     """Whether the bound rules cut a sequence over an axis of the mesh
     larger than 1."""
@@ -320,10 +344,7 @@ def seq_cut(shape: Sequence[int], spec: LogicalSpec, *,
     mesh = _ctx.mesh
     if mesh is None or not _seq_bound(mesh_shape(mesh)):
         return None
-    seen = len(_ctx.fallbacks)
-    e = resolve_spec(shape, spec)[1]
-    if not record:
-        del _ctx.fallbacks[seen:]
+    e = (resolve_spec if record else _resolve_unrecorded)(shape, spec)[1]
     if e is None:
         return None
     axes = (e,) if isinstance(e, str) else tuple(e)
@@ -333,30 +354,268 @@ def seq_cut(shape: Sequence[int], spec: LogicalSpec, *,
         n *= sizes[a]
     if n <= 1:
         return None
+    return _seq_axis(mesh, axes)
+
+
+def _seq_axis(mesh, axes: Tuple[str, ...]) -> SeqAxis:
+    """The :class:`SeqAxis` over ``axes`` of ``mesh``, made once (its
+    group: the first call for these axes must be made on every rank)."""
     held = mesh.__dict__.setdefault("_repro_seq_axes", {})
     if axes not in held:
+        sizes = mesh_shape(mesh)
+        n = 1
+        for a in axes:
+            n *= sizes[a]
         held[axes] = SeqAxis(axes, n, mesh_lib.coordinate(mesh, axes),
                              mesh_lib.axes_group(mesh, axes))
     return held[axes]
 
 
-def require_whole_sequence(batch: int, seq_len: int) -> None:
-    """Raise ``NotImplementedError`` where the bound ``seq`` rule would cut
-    the sequence of activations (``batch``, ``seq_len``, embed), as the
-    reference's ``logical(x, "batch", "seq", "embed")`` cuts a prefill's
-    and a train step's: the port cuts only a decode cache's sequence. A
-    decode step's one position stays whole (the fallback). Where the
-    batch and the sequence would be cut on the same axis,
-    :func:`resolve_spec`'s ``ValueError``."""
+def activation_axes(batch: int, seq_len: int, vocab: Optional[int] = None
+                    ) -> Optional[Tuple[str, ...]]:
+    """The mesh axes the bound ``seq`` rule cuts the sequence of a prefill's
+    or a train step's activations over, ``None`` where it stays whole.
+
+    Resolved as the reference's constraints resolve it: the logits'
+    ``("batch", "seq", "vocab")`` on ``(batch, seq_len, vocab)`` (without
+    ``vocab``, the encoder's ``("batch", "seq", "embed")``), whenever the
+    rule binds an axis of the mesh, of any size. A length the axes do not
+    divide stays whole, the fallback recorded;
+    a mesh axis mapped twice raises ``ValueError`` (the reference's
+    ``DuplicateSpecError``): the batch and the sequence on ``data`` where
+    the batch divides, the sequence and the vocabulary on ``model``. A cut
+    the reference runs but the port does not carry out raises
+    ``NotImplementedError`` (:data:`SEQ_ACTIVATIONS_ITEM`): the sequence
+    over ``model`` (the vocabulary falls back, or there is none), or beside
+    a batch cut over ``pod``."""
     mesh = _ctx.mesh
-    if mesh is None or not _seq_bound(mesh_shape(mesh)):
-        return
-    e = resolve_spec((batch, seq_len), ("batch", "seq"))[1]
-    if e is not None:
+    if mesh is None:
+        return None
+    sizes = mesh_shape(mesh)
+    if not _mesh_axes_for("seq", sizes):
+        return None
+    shape, spec = (batch, seq_len), ("batch", "seq")
+    if vocab is not None:
+        shape, spec = shape + (vocab,), spec + ("vocab",)
+    out = resolve_spec(shape, spec)
+
+    def size(e):
+        n = 1
+        for a in ((e,) if isinstance(e, str) else e or ()):
+            n *= sizes[a]
+        return n
+
+    if size(out[1]) <= 1:
+        return None
+    axes = (out[1],) if isinstance(out[1], str) else tuple(out[1])
+    if "model" in axes or size(out[0]) > 1:
         raise NotImplementedError(
             f"the 'seq' rule cuts the activations' sequence of {seq_len} "
-            f"over {e!r}: the port cuts only a decode cache's sequence "
+            f"over {axes} with the batch of {batch} on {out[0]!r}: the port "
+            f"cuts it over 'data' beside a batch that falls back whole "
             f"({SEQ_ACTIVATIONS_ITEM})")
+    return axes
+
+
+def batch_axes_of(batch: int) -> Tuple[str, ...]:
+    """The mesh axes the bound rules cut a batch of ``batch`` on (its
+    ``("batch",)`` spec resolved, the fallback not recorded); ``()`` where
+    it is whole on every rank."""
+    e = _resolve_unrecorded((batch,), ("batch",))[0]
+    return () if e is None else ((e,) if isinstance(e, str) else tuple(e))
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqBlock:
+    """This rank's block of a sequence cut over ``axis``: positions
+    ``[start, start + length)`` of ``total``."""
+    axis: SeqAxis
+    start: int
+    length: int
+    total: int
+
+
+def activation_cut(batch: int, seq_len: int, vocab: Optional[int] = None
+                   ) -> Optional[SeqBlock]:
+    """This rank's :class:`SeqBlock` of the activations' sequence
+    (:func:`activation_axes`), ``None`` where it stays whole."""
+    axes = activation_axes(batch, seq_len, vocab)
+    if axes is None:
+        return None
+    cut = _seq_axis(_ctx.mesh, axes)
+    L = seq_len // cut.size
+    return SeqBlock(cut, cut.index * L, L, seq_len)
+
+
+def check_logits(batch: int, length: int, vocab: int) -> None:
+    """Raise ``ValueError`` where the reference's constraint on logits of
+    ``(batch, length, vocab)`` maps one mesh axis twice (a chunk of the
+    chunked loss); nothing is recorded."""
+    if _ctx.mesh is not None and \
+            _mesh_axes_for("seq", mesh_shape(_ctx.mesh)):
+        _resolve_unrecorded((batch, length, vocab),
+                            ("batch", "seq", "vocab"))
+
+
+@contextlib.contextmanager
+def cut_sequence(block: Optional[SeqBlock]):
+    """Bind ``block`` (or nothing) for the layers (:func:`seq_block`) for
+    the duration."""
+    prev = _ctx.block
+    _ctx.block = block
+    try:
+        yield
+    finally:
+        _ctx.block = prev
+
+
+def seq_block() -> Optional[SeqBlock]:
+    """The sequence block bound by :func:`cut_sequence`, ``None`` where the
+    activations run whole."""
+    return _ctx.block
+
+
+class _GatherSeq(torch.autograd.Function):
+    """Every rank's block concatenated along ``dim``; its backward is this
+    rank's slice of the gradients summed over the group (an all-reduce,
+    then the slice)."""
+
+    @staticmethod
+    def forward(ctx, x, cut, dim):
+        ctx.cut, ctx.dim, ctx.n = cut, dim, x.shape[dim]
+        return mesh_lib.all_gather(x, cut.group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = mesh_lib.all_reduce(g.contiguous().clone(), ctx.cut.group)
+        return g.narrow(ctx.dim, ctx.cut.index * ctx.n, ctx.n), None, None
+
+
+def gather_seq(x: torch.Tensor, block: SeqBlock, dim: int = 1
+               ) -> torch.Tensor:
+    """The whole sequence from every rank's block ``x`` along ``dim``
+    (one counted all-gather); differentiable, its backward one all-reduce
+    over the axis."""
+    dim = dim % x.dim()
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherSeq.apply(x, block.axis, dim)
+    return mesh_lib.all_gather(x, block.axis.group, dim)
+
+
+def halo(x: torch.Tensor, k: int, block: SeqBlock
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` rows (along dim 1) just before this rank's block ``x``
+    (zeros before the first block) and the whole sequence's last ``k``
+    rows (zeros before its first), from one :func:`gather_seq` of each
+    block's last ``k`` rows (the whole block where it is shorter). The
+    gradient of each row goes back to the rank that sent it."""
+    e = min(k, block.length)
+    every = gather_seq(x[:, block.length - e:].contiguous(), block)
+    pad = x.new_zeros((x.shape[0], k) + tuple(x.shape[2:]))
+    before = torch.cat([pad, every[:, :block.axis.index * e]], 1)
+    return before[:, -k:], torch.cat([pad, every], 1)[:, -k:]
+
+
+class _Relay(torch.autograd.Function):
+    """:func:`relay_scan` with a gradient: the forward's rounds, then the
+    backward's in reverse, each rank's vjp given the cotangent of its
+    final state by the next rank's."""
+
+    @staticmethod
+    def forward(ctx, fwd, vjp, cut, final, s_init, *inputs):
+        y, s0, s_last = _relay_forward(fwd, cut, final, s_init, inputs)
+        ctx.vjp, ctx.cut = vjp, cut
+        ctx.save_for_backward(s0, *inputs)
+        if s_last is not None:
+            ctx.mark_non_differentiable(s_last)
+        return y, s_last
+
+    @staticmethod
+    def backward(ctx, gy, _gs_last):
+        s0, *inputs = ctx.saved_tensors
+        cut = ctx.cut
+        needs = tuple(ctx.needs_input_grad[5:])
+        grads, gs = None, None
+        for j in reversed(range(cut.size)):
+            if j == cut.index:
+                *grads, ds0 = ctx.vjp(*inputs, s0, gy, gs,
+                                      needs + (j > 0,))
+            if j > 0:
+                sent = ds0 if j == cut.index else torch.zeros_like(s0)
+                got = mesh_lib.all_gather(sent.contiguous(), cut.group, 0)
+                if cut.index == j - 1:
+                    gs = got.narrow(0, j * s0.shape[0], s0.shape[0])
+        return (None, None, None, None, None, *grads)
+
+
+def _relay_forward(fwd, cut, final, s_init, inputs):
+    """The rounds of :func:`relay_scan`: (y, this rank's initial state,
+    the last rank's final state or ``None``)."""
+    n, me = cut.size, cut.index
+    s0, y, s_out, s_last = s_init, None, None, None
+    B = s_init.shape[0]
+    for j in range(n if final else n - 1):
+        if j == me:
+            y, s_out = fwd(*inputs, s0)
+        sent = s_out if j == me else torch.zeros_like(s_init)
+        got = mesh_lib.all_gather(sent.contiguous(), cut.group, 0)
+        got = got.narrow(0, j * B, B)
+        if j == me - 1:
+            s0 = got.to(s_init.dtype)
+        if j == n - 1:
+            s_last = got
+    if y is None:                       # the last rank, without `final`
+        y, _ = fwd(*inputs, s0)
+    return y, s0, s_last
+
+
+class _SumOverSeq(torch.autograd.Function):
+    """The sums of ``total`` and ``count`` over the group (one all-reduce);
+    the backward is the all-reduce's adjoint for a cotangent that every
+    rank holds alike (the loss is the same on every rank): ``n`` times it,
+    with no collective; ``count`` takes none."""
+
+    @staticmethod
+    def forward(ctx, total, count, cut):
+        ctx.n = cut.size
+        both = torch.stack([total.float(), count.float()])
+        mesh_lib.all_reduce(both, cut.group)
+        return both[0].to(total.dtype), both[1].to(count.dtype)
+
+    @staticmethod
+    def backward(ctx, g, _gc):
+        return g * ctx.n, None, None
+
+
+def sum_over_seq(total: torch.Tensor, count: torch.Tensor, block: SeqBlock
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(``total``, ``count``) summed over the sequence's axis: a loss's
+    masked sum and its count of valid positions, so that their ratio is
+    the whole sequence's mean on every rank. The step averages the
+    ranks' gradients over ``data``, and each rank's is its blocks' share
+    of ``n`` times the whole loss's: their mean is the whole loss's
+    gradient."""
+    return _SumOverSeq.apply(total, count.detach(), block.axis)
+
+
+def relay_scan(fwd: Callable, vjp: Callable, inputs: Sequence[torch.Tensor],
+               s_init: torch.Tensor, block: SeqBlock, *, final: bool
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A recurrence over a sequence cut into blocks: ``fwd(*inputs, s0) ->
+    (y, s_out)`` runs on each rank's block once the state with which the
+    previous rank's block ended has reached it (``s_init``, of the
+    state's shape and dtype, on the first rank), one counted all-gather a
+    round, ``n - 1`` rounds; with ``final`` one more, which gives every
+    rank the last rank's final state. Returns (y, that state or ``None``).
+    Differentiable in ``inputs`` (not ``s_init``, nor the final state):
+    ``vjp(*inputs, s0, gy, gs, needs) -> (d inputs..., ds0)`` runs in the
+    backward's ``n - 1`` rounds in reverse, each rank's ``ds0`` the
+    previous rank's cotangent of its final state."""
+    cut = block.axis
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return _Relay.apply(fwd, vjp, cut, final, s_init, *inputs)
+    y, _, s_last = _relay_forward(fwd, cut, final, s_init, tuple(inputs))
+    return y, s_last
 
 
 def logical(x: torch.Tensor, *spec: Union[str, None, Tuple[str, ...]]):

@@ -22,11 +22,18 @@ ZeRO-1 slice (``optim.adamw.Zero1``, the step's ``zero`` attribute: build
 the state with ``init_opt_state(cfg, params, step.zero)``).
 
 A bound ``seq`` rule (``launch.sharding.axis_rules(mesh, {"seq":
-"data"})``, around the steps) is context-parallel decode: the decode
-step runs on the rank's blocks of the attention caches
-(``Model.cut_cache`` of a prefill's cache, made under the default
-rules), and a prefill or train step whose sequence it would cut is
-refused (``NotImplementedError``, ROADMAP item 14.4).
+"data"})``, around the steps) is context parallelism. Each rank is
+handed the batch its resolved spec gives it (:func:`_rank_batch`): at a
+batch that ``pod x data`` does not divide, the whole batch, as the
+reference replicates it. A prefill or train step then cuts the sequence
+into a block a rank (``models.transformer.forward``): the prefill returns
+the last position's logits on every rank and the rank's blocks of the
+attention caches, which the decode step runs on, and the train step's
+loss is the whole sequence's on every rank, each rank's gradient its
+blocks' share of ``n`` times it, so that the average over ``pod x data``
+is the whole loss's gradient. Under ``seq -> model`` a prefill or train
+step raises ``ValueError`` wherever the reference's spec maps ``model``
+twice (``launch.sharding.activation_axes``).
 
 A ``model`` axis larger than 1 is tensor parallelism: the model must be
 built on the same mesh (``build_model(cfg, mesh=)``: it holds this rank's
@@ -52,6 +59,7 @@ does not divide it, as the reference replicates it).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Iterable
 
 import torch
@@ -91,6 +99,39 @@ def _split(batch: Dict[str, torch.Tensor], k: int):
 def _local(batch: Dict[str, torch.Tensor], n: int, idx: int):
     """This rank's slice ``idx`` of ``n`` of the batch (see :func:`_split`)."""
     return _split(batch, n)[idx] if n > 1 else batch
+
+
+def batch_cut(mesh, batch_size: int):
+    """(the axes of ``mesh`` that the batch's resolved ``("batch",)`` spec
+    cuts a batch of ``batch_size`` on, under the bound rules (the mesh's
+    default rules where none are bound on it), their size, this rank's
+    index on them): ``pod x data`` where they divide the batch, fewer
+    where the divisibility fallback drops trailing axes, none where none
+    divides it (the whole batch on every rank, as the reference
+    replicates it)."""
+    bound = shd.active_mesh() is mesh
+    with (contextlib.nullcontext() if bound else shd.axis_rules(mesh)):
+        axes = shd.batch_axes_of(batch_size)
+    shape = mesh_lib.mesh_shape(mesh)
+    n = 1
+    for a in axes:
+        n *= shape[a]
+    return axes, n, mesh_lib.coordinate(mesh, axes) if axes else 0
+
+
+def _batch_size(batch: Dict[str, torch.Tensor]) -> int:
+    """The size of the first input with a dimension (``mrope_positions``'
+    dimension 1)."""
+    return next(v.shape[1] if n == "mrope_positions" else v.shape[0]
+                for n, v in batch.items() if v.dim())
+
+
+def _rank_batch(batch: Dict[str, torch.Tensor], mesh):
+    """This rank's slice of ``batch`` (:func:`batch_cut`)."""
+    if mesh is None:
+        return batch
+    _, n, idx = batch_cut(mesh, _batch_size(batch))
+    return _local(batch, n, idx)
 
 
 def _grads(model: Model, params: Dict[str, torch.Tensor], batch, backend):
@@ -133,12 +174,9 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig,
                          "model.requires_grad_(True) before training")
     decay = decay_mask(model.cfg, params)
     zero = shards = None
-    dp, idx = 1, 0
     if mesh is not None:
         tfm.require_supported(mesh, model.cfg)
         require_model_on(model, mesh)
-        axes = mesh_lib.batch_axes(mesh)
-        dp, idx = mesh_lib.dp_size(mesh), mesh_lib.coordinate(mesh, axes)
         zero = zero1_layout(opt_cfg, params, model.cfg, mesh)
         shards = model_shards(model.spec, mesh)
 
@@ -148,7 +186,7 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig,
         return hierarchical_grad_reduce(tree, mesh=mesh, compress="none")
 
     def grads_of(batch):
-        grads, metrics = _grads(model, params, _local(batch, dp, idx),
+        grads, metrics = _grads(model, params, _rank_batch(batch, mesh),
                                 backend)
         return reduce(grads), metrics
 
@@ -247,20 +285,6 @@ def _nbytes(tensors: Iterable[torch.Tensor]) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _rank_batch(batch: Dict[str, torch.Tensor], mesh):
-    """This rank's slice of ``batch`` over ``pod x data`` (the whole batch
-    where the batch axes do not divide it)."""
-    if mesh is None:
-        return batch
-    dp = mesh_lib.dp_size(mesh)
-    B = next(v.shape[1] if n == "mrope_positions" else v.shape[0]
-             for n, v in batch.items() if v.dim())
-    if dp <= 1 or B % dp:
-        return batch
-    return _local(batch, dp, mesh_lib.coordinate(
-        mesh, mesh_lib.batch_axes(mesh)))
-
-
 def trace_train(model: Model, opt_cfg: OptimizerConfig, mesh,
                 shape: ShapeConfig, make_step: Callable) -> StepTrace:
     """Trace the train step ``make_step()`` builds for ``model`` on the
@@ -272,8 +296,7 @@ def trace_train(model: Model, opt_cfg: OptimizerConfig, mesh,
     params = dict(model.params.named_parameters())
     state = init_opt_state(opt_cfg, params, getattr(step, "zero", None))
     batch = input_specs(model.cfg, shape)
-    dp = 1 if mesh is None else mesh_lib.dp_size(mesh)
-    local = _local(batch, dp, 0)
+    local = _rank_batch(batch, mesh)
     args = list(params.values()) + [state.step] + list(state.mu.values()) \
         + list(state.nu.values())
     return trace_step(lambda: step(state, batch), args,
@@ -283,10 +306,9 @@ def trace_train(model: Model, opt_cfg: OptimizerConfig, mesh,
 def lower_train_step(model: Model, opt_cfg: OptimizerConfig, mesh,
                      shape: ShapeConfig, *, microbatches: int = 1
                      ) -> StepTrace:
-    """Trace one rank's ``make_train_step(mesh=)`` on the meta device (a
-    bound ``seq`` rule that would cut its sequence refused:
-    ``launch.sharding.require_whole_sequence``)."""
-    shd.require_whole_sequence(shape.global_batch, shape.seq_len)
+    """Trace one rank's ``make_train_step(mesh=)`` on the meta device
+    (under a bound ``seq`` rule, context parallel: the module's
+    docstring)."""
     return trace_train(model, opt_cfg, mesh, shape, lambda: make_train_step(
         model, opt_cfg, microbatches=microbatches, backend="torch",
         mesh=mesh))
@@ -301,10 +323,8 @@ def _serve_len(model: Model, shape: ShapeConfig) -> int:
 def lower_prefill_step(model: Model, mesh, shape: ShapeConfig
                        ) -> StepTrace:
     """Trace one rank's prefill of its slice of ``shape``'s batch, the
-    cache made for ``seq_len`` (half of it for an encoder-decoder); a
-    bound ``seq`` rule that would cut its sequence refused
-    (``launch.sharding.require_whole_sequence``)."""
-    shd.require_whole_sequence(shape.global_batch, _serve_len(model, shape))
+    cache made for ``seq_len`` (half of it for an encoder-decoder); under
+    a bound ``seq`` rule, context parallel (the module's docstring)."""
     _on_meta(model, mesh, False)
     specs = input_specs(model.cfg, shape)
     local = _rank_batch(specs, mesh)

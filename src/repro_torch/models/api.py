@@ -27,7 +27,12 @@ to draw real ones.
 ``mesh`` (``launch.mesh``) is the mesh the model runs on: every method
 binds it (``launch.sharding.axis_rules``) for its call, under the
 default rules unless the caller has bound it with its own (a ``seq``
-rule for context-parallel decode: :meth:`Model.cut_cache`). On a mesh whose
+rule for context parallelism: under ``seq -> data`` at a batch that
+does not divide, :meth:`Model.prefill`, :meth:`Model.loss` and
+:meth:`Model.encode` run each rank's block of the sequence, the prefill
+returning the rank's blocks of the cache, which
+:meth:`Model.decode_step` takes as they are; a cache a prefill made
+under the default rules is cut with :meth:`Model.cut_cache`). On a mesh whose
 ``model`` axis is larger than 1 the model holds only this rank's shard
 of each parameter, as :attr:`Model.spec` gives it
 (``transformer.tp_param_spec``), and runs tensor parallel (every layer

@@ -58,8 +58,19 @@ MLA's absorbed ``q_lat`` and ``qr``) is gathered over ``model``, every
 head attends over the rank's block, and the rank keeps its own heads
 after the merge; a GQA cache then holds every KV head.
 :func:`cut_seq_cache` / :func:`gather_seq_cache` cut a whole cache to the
-rank's blocks and gather them back. The prefill and train modes run
-whole sequences only (``launch.sharding.require_whole_sequence``).
+rank's blocks and gather them back.
+
+Where the rule cuts a train or prefill pass's sequence
+(``launch.sharding.seq_block``: context-parallel prefill and training)
+each rank computes q, k and v (MLA: q and the latent ``c`` / ``kr``) of
+its block, with RoPE at the block's global positions; k and v (MLA's
+latent) are gathered over the axis in one all-gather, and K4 runs the
+block's queries at ``q_offset`` = the block's first position over the
+whole keys, causal and windowed as configured (not causal in the
+encoder). A prefill writes each rank's block of the cache from the
+gathered keys (:func:`_fill`: the ring's wrap included), what
+:func:`cut_seq_cache` gives from one process's prefill. Cross attention
+reads the whole memory, gathered once a forward.
 """
 from __future__ import annotations
 
@@ -320,6 +331,29 @@ def _block_write(cache_t: torch.Tensor, new: torch.Tensor,
         cache_t[:, slot] = new[:, 0].to(cache_t.dtype)
 
 
+def _fill(cache_t: torch.Tensor, new: torch.Tensor, pos0: int,
+          capacity: int, start: int) -> None:
+    """Write the whole sequence ``new`` (B, S, ...), positions ``[pos0,
+    pos0 + S)``, into the cache leaf ``cache_t``, in place: into the whole
+    ring (:func:`_ring_write`), or where it holds the block of slots
+    ``[start, start + L)`` of ``capacity``, each slot from the last
+    position that lands on it (``p % capacity``), a slot no position
+    reaches left as it is. The slots are reckoned on the host, so that a
+    cache on the meta device (the dry run's trace) takes the same
+    write."""
+    L = cache_t.shape[1]
+    if L == capacity:
+        _ring_write(cache_t, new, pos0)
+        return
+    last = int(pos0) + new.shape[1] - 1
+    slots = torch.arange(start, start + L)
+    p = last - (last - slots) % capacity
+    ok = p >= int(pos0)
+    idx = (slots[ok] - start).to(cache_t.device)
+    src = (p[ok] - int(pos0)).to(new.device)
+    cache_t[:, idx] = new[:, src].to(cache_t.dtype)
+
+
 def _merge(o, m, l, cut: shd.SeqAxis) -> torch.Tensor:
     """The ranks' partials merged over ``cut``'s group
     (``chunked.decode_merge``) through the counted collectives."""
@@ -410,16 +444,19 @@ def _gqa_apply(
     q, k = _rope_qk(q, k, cfg, positions, mrope_positions)
 
     window = cfg.sliding_window or 0
-    if mode == "train":
+    if mode in ("train", "prefill"):
+        block = shd.seq_block()
+        q_offset = 0
+        if block is not None:
+            kv_all = shd.gather_seq(torch.cat([k, v], -1), block)
+            k, v = kv_all[..., :Dh], kv_all[..., Dh:]
+            q_offset = block.start
         out = ops.attention(q, k, v, causal=causal, window=window,
-                            backend=backend)
+                            q_offset=q_offset, backend=backend)
         new_cache = None
-    elif mode == "prefill":
-        out = ops.attention(q, k, v, causal=causal, window=window,
-                            backend=backend)
-        _ring_write(cache["k"], k, pos0)
-        _ring_write(cache["v"], v, pos0)
-        new_cache = cache
+        if mode == "prefill":
+            _gqa_fill(cfg, cache, k, v, pos0, tp)
+            new_cache = cache
     elif mode == "decode":
         if S != 1 or cache is None:
             raise ValueError(f"decode takes one token and a cache, got "
@@ -443,6 +480,25 @@ def _gqa_apply(
 
     out = out.reshape(B, S, H * Dh)
     return shd.tp_row_matmul(out, p["wo"], "heads"), new_cache
+
+
+def _gqa_fill(cfg: ModelConfig, cache: SeqCache, k: torch.Tensor,
+              v: torch.Tensor, pos0: int, tp: Optional[shd.ModelAxis]
+              ) -> None:
+    """A prefill's write of the whole sequence's ``k`` and ``v`` into this
+    rank's cache: its block under a ``seq`` rule that cuts the capacity
+    (every KV head, gathered over ``model``, where the cut is on a
+    ``model`` axis and the rank computed only its group's: as
+    :func:`cut_seq_cache`), else the whole ring."""
+    B = k.shape[0]
+    C = getattr(cache, "capacity", cache["k"].shape[1])
+    cut = kv_seq_cut(cfg, B, C, record=False)
+    start = _block(cache, "k", cut)
+    held = _cache_kv_heads(cfg, cut)
+    if held != local_heads(cfg, tp)[1:]:
+        k, v = _every_kv_head(cfg, k, tp), _every_kv_head(cfg, v, tp)
+    _fill(cache["k"], k, pos0, C, start)
+    _fill(cache["v"], v, pos0, C, start)
 
 
 def _cp_decode(q, k, v, cache, pos0, kv_len, capacity: int, start: int,
@@ -668,17 +724,30 @@ def _mla_apply(
 
     if mode in ("train", "prefill"):
         c, kr = _mla_ckv(p, x, cfg, positions, B, S, backend=backend)
-        kv = (shd.copy_to_model(c) @ p["wkv_b"]).reshape(B, S, H, dn + dv)
+        block = shd.seq_block()
+        q_offset, Sk = 0, S
+        if block is not None:
+            ckr = shd.gather_seq(torch.cat([c, kr], -1), block)
+            c, kr = ckr[..., :m.kv_lora_rank], ckr[..., m.kv_lora_rank:]
+            q_offset, Sk = block.start, block.total
+        kv = (shd.copy_to_model(c) @ p["wkv_b"]).reshape(B, Sk, H, dn + dv)
         kn, v = kv[..., :dn], kv[..., dn:]
-        krh = shd.copy_to_model(kr)[:, :, None, :].expand(B, S, H, dr)
+        krh = shd.copy_to_model(kr)[:, :, None, :].expand(B, Sk, H, dr)
         k = torch.cat([kn, krh], -1)
         q = torch.cat([qn, qr], -1)
         out = ops.attention(q, k, v, causal=causal, scale=scale,
-                            backend=backend)
+                            q_offset=q_offset, backend=backend)
         new_cache = None
         if mode == "prefill":
-            _write_at(cache["c"], c, pos0)
-            _write_at(cache["kr"], kr, pos0)
+            C = getattr(cache, "capacity", cache["c"].shape[1])
+            start = _block(cache, "c", latent_seq_cut(cfg, B, C,
+                                                      record=False))
+            if cache["c"].shape[1] == C:
+                _write_at(cache["c"], c, pos0)
+                _write_at(cache["kr"], kr, pos0)
+            else:
+                _fill(cache["c"], c, pos0, C, start)
+                _fill(cache["kr"], kr, pos0, C, start)
             new_cache = cache
     elif mode == "decode":
         if S != 1 or cache is None:

@@ -221,11 +221,24 @@ def moe_apply(p, x: torch.Tensor, *, cfg: ModelConfig, mean_aux: bool = True
     averaged over the batch axes that are not manual (``mean_over_batch``;
     its backward is the identity, since the step averages the gradients
     over them). Serving passes ``mean_aux=False``: the reference's compiler
-    drops that unused collective."""
+    drops that unused collective.
+
+    Where a ``seq`` rule cuts the sequence (``launch.sharding.seq_block``,
+    whose batch falls back whole) the tokens are replicated, as the
+    reference's ``shard_map`` replicates a batch that does not divide:
+    the block's tokens are gathered over the axis, every rank routes and
+    computes the whole sequence and keeps its block's rows, and the aux
+    loss is the whole sequence's, with no mean (the reference's
+    ``pmean`` is over the batch axes that cut the batch: none)."""
     mo = cfg.moe
-    out, aux = _moe_local(p, x.reshape(-1, x.shape[-1]), mo, cfg.act)
-    out = shd.reduce_from_model(out.reshape(x.shape))
-    if mean_aux:
+    block = shd.seq_block()
+    xs = x if block is None else shd.gather_seq(x, block)
+    out, aux = _moe_local(p, xs.reshape(-1, x.shape[-1]), mo, cfg.act)
+    out = out.reshape(xs.shape)
+    if block is not None:
+        out = out[:, block.start:block.start + block.length]
+    out = shd.reduce_from_model(out)
+    if mean_aux and block is None:
         aux = shd.mean_over_batch(aux)
     if mo.num_shared_experts > 0:
         out = out + mlp_apply(p["shared"], x, cfg=cfg)

@@ -35,6 +35,16 @@ Where the reference returns a new cache (with the cache donated to the
 step), the port writes the recurrent state (RWKV: ``last_x`` and
 ``state``; Mamba: ``conv`` and ``h``) into the preallocated cache in place
 and returns the same dict.
+
+Where a ``seq`` rule cuts a train or prefill pass's sequence
+(``launch.sharding.seq_block``) each rank runs its block: the token
+shifts' first row (RWKV-6's time and channel mix) and the convolution's
+first ``d_conv - 1`` inputs (Mamba) are the previous block's last rows
+(``launch.sharding.halo``; zeros before the first block, as a prefill's
+fresh cache holds), and K6 and K7 start from the state with which the
+previous block ended (``launch.sharding.relay_scan``: one all-gather a
+round, the gradient relayed back in reverse). A prefill writes the whole
+sequence's final states into every rank's cache: the last block's.
 """
 from __future__ import annotations
 
@@ -110,6 +120,18 @@ def _token_shift(x: torch.Tensor, last: Optional[torch.Tensor]
     return prev
 
 
+def _shift(x: torch.Tensor, last: Optional[torch.Tensor],
+           block: Optional[shd.SeqBlock]
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x_{t-1} for every row of ``x``, the sequence's last row): with
+    ``block`` the first row is the previous block's last
+    (:func:`launch.sharding.halo`) and the last row the last block's."""
+    if block is None:
+        return _token_shift(x, last), x[:, -1]
+    first, tail = shd.halo(x, 1, block)
+    return torch.cat([first, x[:, :-1]], 1), tail[:, 0]
+
+
 def _group_norm(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                 H: int, eps: float) -> torch.Tensor:
     """LayerNorm per head over the K dim. y: (B,S,D) with D = H*K."""
@@ -146,7 +168,8 @@ def _rwkv_tmix_apply(
     H = shd.local_size(cfg.num_heads)
     K = cfg.ssm.head_dim
     last_x = cache["last_x"] if cache else None
-    prev = _token_shift(x, last_x)
+    block = shd.seq_block() if mode != "decode" else None
+    prev, tail = _shift(x, last_x, block)
     delta = prev - x
 
     # data-dependent interpolation (ddlerp)
@@ -173,8 +196,14 @@ def _rwkv_tmix_apply(
                              f"S={S} and cache={cache is not None}")
         y, s_out = ops.wkv6_decode(r, k, v.to(r.dtype), w, u, s0,
                                    backend=backend)
-    else:
+    elif block is None:
         y, s_out = ops.wkv6(r, k, v, w, u, s0, backend=backend)
+    else:
+        s_init = s0 if s0 is not None else torch.zeros(
+            (B, H, K, K), dtype=torch.float32, device=x.device)
+        y, s_out = shd.relay_scan(
+            lambda *a: ops.wkv6(*a, backend=backend), ops.wkv6_vjp,
+            (r, k, v, w, u), s_init, block, final=mode == "prefill")
     y = y.reshape(B, S, H * K)
     y = _group_norm(y, shd.local_part(p["gn_scale"]),
                     shd.local_part(p["gn_bias"]), H, cfg.norm_eps * 64)
@@ -182,7 +211,7 @@ def _rwkv_tmix_apply(
 
     new_cache = None
     if mode in ("prefill", "decode"):
-        cache["last_x"].copy_(x[:, -1])
+        cache["last_x"].copy_(tail)
         cache["state"].copy_(s_out)
         new_cache = cache
     return out, new_cache
@@ -219,7 +248,8 @@ def rwkv_cmix_apply(
     """Under a model axis ``wk`` is column-parallel and ``wv``
     row-parallel on ``d_ff``, ``wr`` whole on every rank."""
     last_x = cache["last_x"] if cache else None
-    prev = _token_shift(x, last_x)
+    prev, tail = _shift(x, last_x,
+                        shd.seq_block() if mode != "decode" else None)
     delta = prev - x
     xk = x + delta * p["mu_k"]
     xr = x + delta * p["mu_r"]
@@ -228,7 +258,7 @@ def rwkv_cmix_apply(
     out = torch.sigmoid(xr @ p["wr"]) * kv
     new_cache = None
     if mode in ("prefill", "decode"):
-        cache["last_x"].copy_(x[:, -1])
+        cache["last_x"].copy_(tail)
         new_cache = cache
     return out, new_cache
 
@@ -333,7 +363,11 @@ def _mamba_apply(
 
     xz = shd.copy_to_model(x) @ p["in_proj"]
     xin, z = xz.chunk(2, dim=-1)
+    kk = p["conv_w"].shape[0]
+    block = shd.seq_block() if mode != "decode" else None
     prev_conv = cache["conv"] if cache else None
+    if block is not None:
+        prev_conv, conv_tail = shd.halo(xin, kk - 1, block)
     xc = F.silu(_causal_conv(xin, p["conv_w"], p["conv_b"], prev_conv))
 
     proj = shd.tp_row_matmul(xc, p["x_proj"], "ff")          # (B,S,r+2N)
@@ -357,16 +391,24 @@ def _mamba_apply(
                              f"S={S} and cache={cache is not None}")
         y, h_out = ops.mamba_decode(xc, dt, A, Bm, C, p["D"], h0,
                                     backend=backend)
-    else:
+    elif block is None:
         y, h_out = ops.mamba_scan(xc, dt, A, Bm, C, p["D"], h0,
                                   backend=backend)
+    else:
+        h_init = h0 if h0 is not None else torch.zeros(
+            (B, Din, N), dtype=torch.float32, device=x.device)
+        y, h_out = shd.relay_scan(
+            lambda *a: ops.mamba_scan(*a, backend=backend),
+            ops.mamba_scan_vjp, (xc, dt, A, Bm, C, p["D"]), h_init, block,
+            final=mode == "prefill")
     out = shd.tp_row_matmul(y * F.silu(z), p["out_proj"], "ff")
 
     new_cache = None
     if mode in ("prefill", "decode"):
-        kk = p["conv_w"].shape[0]
         if mode == "decode":
             conv_new = torch.cat([prev_conv[:, 1:].to(xin.dtype), xin], dim=1)
+        elif block is not None:
+            conv_new = conv_tail
         else:
             pad = torch.zeros((B, kk - 1, Din), dtype=xin.dtype,
                               device=xin.device)

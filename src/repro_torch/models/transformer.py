@@ -36,6 +36,15 @@ the stack's).
 A layer kind outside :data:`SUPPORTED_KINDS` is refused when the model is
 built (:func:`check_supported`).
 
+Context parallelism: under a ``seq`` rule that cuts a train or prefill
+pass's sequence (``launch.sharding.activation_cut``: ``seq -> data`` at
+a batch that ``pod x data`` does not divide) each rank runs its block of
+the positions through the whole model (:func:`forward`, :func:`encode`),
+the layers reaching the rest of the sequence through the axis's
+collectives; the prefill returns the last rank's last logits on every
+rank and the rank's blocks of the cache, and the losses are the whole
+sequence's means on every rank (:func:`loss_fn`).
+
 Modes:
   * ``train``   -- full causal pass, logits, no cache; with grad enabled,
                    each block is checkpointed by the configuration's
@@ -597,7 +606,8 @@ def _embed(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def scatter_patches(x: torch.Tensor, patch_embeds: torch.Tensor,
-                    patch_positions: torch.Tensor) -> torch.Tensor:
+                    patch_positions: torch.Tensor,
+                    block: Optional[shd.SeqBlock] = None) -> torch.Tensor:
     """The vision stub: ``x.at[bidx, patch_positions].set(patch_embeds)``
     of the reference, which writes row ``b``'s patch ``j`` at position
     ``patch_positions[b, j]`` of the token stream. A negative position
@@ -605,10 +615,14 @@ def scatter_patches(x: torch.Tensor, patch_embeds: torch.Tensor,
     JAX drops it, with no device-side assert: such patches are written to
     a spare row past the end, which is cut off. Positions within a row
     are taken to be distinct: for a repeated one neither package defines
-    which patch is kept. Returns a new (B, S, D) tensor."""
+    which patch is kept. With ``block`` ``x`` is this rank's block of the
+    sequence: the rules above apply on the whole length, then only the
+    patches that fall in the block are written. Returns a new (B, L, D)
+    tensor."""
     B, S, D = x.shape
+    lo, n = (0, S) if block is None else (block.start, block.total)
     pp = patch_positions.to(device=x.device, dtype=torch.long)
-    pp = torch.where(pp < 0, pp + S, pp)
+    pp = torch.where(pp < 0, pp + n, pp) - lo
     pp = torch.where((pp >= 0) & (pp < S), pp, S)
     xe = torch.cat([x, x.new_zeros((B, 1, D))], 1)
     xe[torch.arange(B, device=x.device)[:, None], pp] = \
@@ -699,6 +713,8 @@ class Output:
     aux_loss: Optional[torch.Tensor] = None    # scalar (MoE balance);
                                                # None without MoE layers
     hidden: Optional[torch.Tensor] = None      # pre-norm hidden (for MTP)
+    block: Optional[shd.SeqBlock] = None       # this rank's block of the
+                                               # sequence, None if whole
 
 
 def _head(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -708,15 +724,21 @@ def _head(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return shd.copy_to_model(x) @ head
 
 
-def _embed_frames(p: Params, cfg: ModelConfig, enc_embeds: torch.Tensor
+def _embed_frames(p: Params, cfg: ModelConfig, enc_embeds: torch.Tensor,
+                  block: Optional[shd.SeqBlock] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The encoder's input: frame embeddings (B, S_enc, D) in
-    ``cfg.dtype`` + ``pos_embed``. Returns (x, positions)."""
+    ``cfg.dtype`` + ``pos_embed`` (with ``block``, this rank's block of
+    the frames at their global positions). Returns (x, positions)."""
     if p.enc_blocks is None:
         raise ValueError(f"{cfg.name} has no encoder")
     B, S, _ = enc_embeds.shape
     dt = getattr(torch, cfg.dtype)
-    positions = positions_for(B, S, device=p.embed.device)
+    if block is not None:
+        enc_embeds = enc_embeds[:, block.start:block.start + block.length]
+        S = block.length
+    positions = positions_for(B, S, 0 if block is None else block.start,
+                              device=p.embed.device)
     x = enc_embeds.to(device=p.embed.device, dtype=dt)
     if p.pos_embed is not None:
         x = x + p.pos_embed[positions.long()].to(dt)
@@ -727,13 +749,20 @@ def encode(p: Params, cfg: ModelConfig, enc_embeds: torch.Tensor, *,
            backend: str = "cuda") -> torch.Tensor:
     """The encoder from precomputed frame embeddings (B, S_enc, D) (the
     audio stub): + ``pos_embed``, the non-causal stack, ``enc_norm``.
-    Returns the memory (B, S_enc, D) in ``cfg.dtype``."""
-    shd.require_whole_sequence(*enc_embeds.shape[:2])
-    x, positions = _embed_frames(p, cfg, enc_embeds)
-    x, _, _ = _run_stack(p, x, cfg=cfg, positions=positions, pos0=0,
-                         mode="train", cache=None, kv_len=None,
-                         backend=backend, enc=True)
-    return _norm(p.enc_norm, x, cfg.norm_eps, backend=backend)
+    Returns the memory (B, S_enc, D) in ``cfg.dtype``. Under a ``seq``
+    rule that cuts the frames (``launch.sharding.activation_cut``, the
+    reference's ``logical(x, "batch", "seq", "embed")``) each rank runs
+    its block, its attention over the gathered keys and values, and the
+    memory is gathered whole at the end."""
+    B, S, _ = enc_embeds.shape
+    block = shd.activation_cut(B, S)
+    x, positions = _embed_frames(p, cfg, enc_embeds, block)
+    with shd.cut_sequence(block):
+        x, _, _ = _run_stack(p, x, cfg=cfg, positions=positions, pos0=0,
+                             mode="train", cache=None, kv_len=None,
+                             backend=backend, enc=True)
+        x = _norm(p.enc_norm, x, cfg.norm_eps, backend=backend)
+    return x if block is None else shd.gather_seq(x, block)
 
 
 def forward(
@@ -754,37 +783,54 @@ def forward(
     mrope_positions (3,B,S). ``pos0`` is the position of ``tokens[:, 0]``
     for the cache write (read from ``positions`` when not given, 0
     without them). With ``head=False`` the logits are the normed hidden
-    state (the chunked loss applies the head itself). A ``seq`` rule
-    that would cut a train or prefill pass's sequence is refused
-    (``launch.sharding.require_whole_sequence``): the port cuts only a
-    decode cache's."""
+    state (the chunked loss applies the head itself).
+
+    Context parallelism: in a train or prefill pass a ``seq`` rule that
+    cuts the sequence (``launch.sharding.activation_cut``, resolved as
+    the reference's logits constraint) has each rank embed, run the
+    stack, norm and project its block of the positions (their global
+    positions; the patches that fall in it), and the logits, hidden state
+    and ``Output.block`` are the block's; the layers see the rest of the
+    sequence through the axis's collectives (``models.attention``,
+    ``models.ssm``, ``models.mlp``). ``pos0`` stays the whole sequence's
+    first position."""
     tokens = batch["tokens"]
     B, S = tokens.shape
+    block = None
     if mode != "decode":
-        shd.require_whole_sequence(B, S)
+        block = shd.activation_cut(B, S, cfg.padded_vocab() if head
+                                   else None)
     positions = batch.get("positions")
     if positions is None:
         positions = positions_for(B, S, device=tokens.device)
         pos0 = 0 if pos0 is None else pos0
     elif pos0 is None:
         pos0 = int(positions[0, 0])
+    mrope = batch.get("mrope_positions")
     memory = None
     if cfg.is_encoder_decoder:
         memory = batch.get("memory")
         if memory is None:
             memory = encode(p, cfg, batch["enc_embeds"], backend=backend)
+    if block is not None:
+        cut = slice(block.start, block.start + block.length)
+        tokens, positions = tokens[:, cut], positions[:, cut]
+        if mrope is not None:
+            mrope = mrope[:, :, cut]
     x = _embed(p, cfg, tokens, positions, backend=backend)
     if cfg.frontend == "vision" and "patch_embeds" in batch:
         x = scatter_patches(x, batch["patch_embeds"],
-                            batch["patch_positions"])
-    x, aux, new_cache = _run_stack(
-        p, x, cfg=cfg, positions=positions, pos0=pos0, mode=mode,
-        cache=cache, kv_len=batch.get("kv_len"), backend=backend,
-        memory=memory, mrope_positions=batch.get("mrope_positions"))
-    hidden = x
-    x = _norm(p.final_norm, x, cfg.norm_eps, backend=backend)
-    return Output(logits=_head(p, cfg, x) if head else x, cache=new_cache,
-                  aux_loss=aux, hidden=hidden)
+                            batch["patch_positions"], block)
+    with shd.cut_sequence(block):
+        x, aux, new_cache = _run_stack(
+            p, x, cfg=cfg, positions=positions, pos0=pos0, mode=mode,
+            cache=cache, kv_len=batch.get("kv_len"), backend=backend,
+            memory=memory, mrope_positions=mrope)
+        hidden = x
+        x = _norm(p.final_norm, x, cfg.norm_eps, backend=backend)
+        logits = _head(p, cfg, x) if head else x
+    return Output(logits=logits, cache=new_cache, aux_loss=aux,
+                  hidden=hidden, block=block)
 
 
 # ---------------------------------------------------------------------------
@@ -821,19 +867,31 @@ def _logits_nll(logits: torch.Tensor, labels: torch.Tensor,
     return torch.log(sum_exp) + m - tgt
 
 
+def _mean(total: torch.Tensor, count: torch.Tensor,
+          block: Optional[shd.SeqBlock]) -> torch.Tensor:
+    """``total / max(count, 1)``, both summed over the sequence's axis
+    first where it is cut (``launch.sharding.sum_over_seq``)."""
+    if block is not None:
+        total, count = shd.sum_over_seq(total, count, block)
+    return total / torch.clamp(count, min=1.0)
+
+
 def _xent(logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor,
-          vocab_size: int) -> torch.Tensor:
+          vocab_size: int, block: Optional[shd.SeqBlock] = None
+          ) -> torch.Tensor:
     """Masked mean cross-entropy. logits (B,S,Vp) any dtype, labels (B,S)
-    int64, valid (B,S) float32."""
+    int64, valid (B,S) float32 (with ``block``, this rank's block of each,
+    the mean the whole sequence's)."""
     nll = _logits_nll(logits, labels, vocab_size) * valid
-    return nll.sum() / torch.clamp(valid.sum(), min=1.0)
+    return _mean(nll.sum(), valid.sum(), block)
 
 
 def _xent_chunked(p: Params, cfg: ModelConfig, hidden_normed: torch.Tensor,
-                  labels: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+                  labels: torch.Tensor, valid: torch.Tensor,
+                  block: Optional[shd.SeqBlock] = None) -> torch.Tensor:
     """The same loss with the head applied one sequence chunk of
     ``cfg.loss_chunk`` positions at a time (then the remainder), summed
-    in chunk order."""
+    in chunk order (with ``block``, the chunks of this rank's block)."""
     B, S, D = hidden_normed.shape
     C = min(cfg.loss_chunk, S)
     total = torch.zeros((), dtype=torch.float32,
@@ -843,30 +901,33 @@ def _xent_chunked(p: Params, cfg: ModelConfig, hidden_normed: torch.Tensor,
         logits = _head(p, cfg, hidden_normed[:, a:b])
         total = total + (_logits_nll(logits, labels[:, a:b], cfg.vocab_size)
                          * valid[:, a:b]).sum()
-    return total / torch.clamp(valid.sum(), min=1.0)
+    return _mean(total, valid.sum(), block)
 
 
 def _mtp_loss(p: Params, cfg: ModelConfig, hidden: torch.Tensor,
-              tokens: torch.Tensor, labels2: torch.Tensor,
+              nxt: torch.Tensor, labels2: torch.Tensor,
               valid2: torch.Tensor, positions: torch.Tensor, *,
-              backend: str) -> torch.Tensor:
+              backend: str, block: Optional[shd.SeqBlock] = None
+              ) -> torch.Tensor:
     """DeepSeek-V3 MTP (depth 1): predict t+2 from [norm(h_t);
-    norm(E(t+1))] through one block of the last layer's kind."""
+    norm(E(t+1))] through one block of the last layer's kind; ``nxt`` are
+    the tokens t+1 (with ``block``, of this rank's block, the block bound
+    around the MTP block)."""
     m = p.mtp
     eps = cfg.norm_eps
-    nxt = torch.roll(tokens, -1, 1)                          # token t+1
     e = _lookup(p, cfg, nxt)
     h = torch.cat([_norm(m.norm_h, hidden, eps, backend=backend),
                    _norm(m.norm_e, e, eps, backend=backend)], -1)
     h = h @ m.proj
-    h, _, _ = block_apply(m.block, h, cfg=cfg,
+    with shd.cut_sequence(block):
+        h, _, _ = block_apply(m.block, h, cfg=cfg,
                               kind=kind_for_layer(cfg, cfg.num_layers - 1),
                               positions=positions, pos0=0, mode="train",
                               cache=None, kv_len=None, backend=backend)
     h = _norm(m.final_norm, h, eps, backend=backend)
     if cfg.loss_chunk > 0:
-        return _xent_chunked(p, cfg, h, labels2, valid2)
-    return _xent(_head(p, cfg, h), labels2, valid2, cfg.vocab_size)
+        return _xent_chunked(p, cfg, h, labels2, valid2, block)
+    return _xent(_head(p, cfg, h), labels2, valid2, cfg.vocab_size, block)
 
 
 def loss_fn(p: Params, batch: Dict[str, torch.Tensor], *, cfg: ModelConfig,
@@ -875,22 +936,42 @@ def loss_fn(p: Params, batch: Dict[str, torch.Tensor], *, cfg: ModelConfig,
     """Next-token LM loss (+ MoE aux + MTP). batch["tokens"]: (B, S+1) --
     inputs are [:, :-1], labels are [:, 1:]; an optional loss_mask
     (B, S+1) masks the labels by its [:, 1:]. Returns (loss, metrics:
-    lm_loss, aux_loss with an MoE, mtp_loss with MTP, loss)."""
+    lm_loss, aux_loss with an MoE, mtp_loss with MTP, loss).
+
+    Where a ``seq`` rule cuts the sequence (:func:`forward`), each rank
+    holds the whole batch, takes the labels, the mask and the MTP's
+    shifted tokens of its block from it (so the next block's first token
+    needs no collective), and the losses are the whole sequence's means
+    on every rank (``launch.sharding.sum_over_seq``); the chunked loss's
+    chunks are checked on the whole length first, as the reference's
+    constraint checks them."""
     toks = batch["tokens"].long()
     inputs, labels = toks[:, :-1], toks[:, 1:]
     fb = dict(batch)
     fb["tokens"] = inputs
     chunked = cfg.loss_chunk > 0
+    if chunked:
+        B, S = inputs.shape
+        C = min(cfg.loss_chunk, S)
+        for n in {C, S % C} - {0}:
+            shd.check_logits(B, n, cfg.padded_vocab())
     out = forward(p, fb, cfg=cfg, mode="train", backend=backend,
                   head=not chunked)
+    block = out.block
     valid = torch.ones(labels.shape, dtype=torch.float32,
                        device=labels.device)
     if "loss_mask" in batch:
         valid = batch["loss_mask"][:, 1:].float()
+
+    def mine(t):
+        return t if block is None else \
+            t[:, block.start:block.start + block.length]
     if chunked:
-        loss = _xent_chunked(p, cfg, out.logits, labels, valid)
+        loss = _xent_chunked(p, cfg, out.logits, mine(labels), mine(valid),
+                             block)
     else:
-        loss = _xent(out.logits, labels, valid, cfg.vocab_size)
+        loss = _xent(out.logits, mine(labels), mine(valid), cfg.vocab_size,
+                     block)
     metrics = {"lm_loss": loss}
     if cfg.moe is not None:
         metrics["aux_loss"] = out.aux_loss
@@ -902,8 +983,9 @@ def loss_fn(p: Params, batch: Dict[str, torch.Tensor], *, cfg: ModelConfig,
         pos = batch.get("positions")
         if pos is None:
             pos = positions_for(*inputs.shape, device=inputs.device)
-        lm = _mtp_loss(p, cfg, out.hidden, inputs, labels2, valid2, pos,
-                       backend=backend)
+        nxt = torch.roll(inputs, -1, 1)                      # token t+1
+        lm = _mtp_loss(p, cfg, out.hidden, mine(nxt), mine(labels2),
+                       mine(valid2), mine(pos), backend=backend, block=block)
         metrics["mtp_loss"] = lm
         loss = loss + mtp_weight * lm
     metrics["loss"] = loss
@@ -921,12 +1003,19 @@ def prefill(p: Params, batch: Dict[str, torch.Tensor], *, cfg: ModelConfig,
     """Run the prompt, return (last-token logits (B,Vp), filled cache).
     The logits of every position are computed, as in the reference; only
     a copy of the last position's outlives the call (gathered over
-    ``model`` under a model axis)."""
+    ``model`` under a model axis). Under a ``seq`` rule that cuts the
+    prompt (:func:`forward`) the last position is the last rank's, given
+    to every rank (one all-gather), and the cache is this rank's blocks
+    of the attention caches (as ``cut_cache`` of one process's prefill
+    would give) and the SSM states the whole sequence's."""
     B, S = batch["tokens"].shape
     cache = init_cache(cfg, B, max_len, device=batch["tokens"].device)
     out = forward(p, batch, cfg=cfg, mode="prefill", cache=cache,
                   backend=backend)
-    last = out.logits[:, -1]
+    last = out.logits[:, -1:]
+    if out.block is not None:
+        last = shd.gather_seq(last, out.block)[:, -1:]
+    last = last[:, 0]
     return (last.clone() if shd.model_axis() is None
             else shd.gather_from_model(last)), out.cache
 

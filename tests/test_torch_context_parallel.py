@@ -28,8 +28,10 @@ on both ranks, the fallback recorded, its decode bit-identical to the
 decode without the rule; Qwen2-7B's two KV heads at ``(1, 2)`` under
 ``seq -> model`` raise ``ValueError`` where the reference raises
 ``DuplicateSpecError``; a prefill, a train step and their ``lower_*``
-builders under a rule that cuts their sequence raise
-``NotImplementedError`` naming ROADMAP item 14.4; RWKV-6's decode under
+builders under ``seq -> data`` run, context parallel (their sequence cut
+into a block a rank: ``tests/test_torch_cp_prefill.py`` holds their
+numbers), and under ``seq -> model`` raise ``ValueError``, where the
+reference's logits constraint maps ``model`` twice; RWKV-6's decode under
 ``seq -> data`` bit-identical to its decode without the rule.
 """
 import json
@@ -199,7 +201,8 @@ def _save(path, tensors):
 def _refusals(mesh2x1, mesh1x2, jax_dir):
     """The rules' refusals and fallbacks on the ranks: a capacity the
     axis does not divide, the duplicate axis, the prefill and train
-    steps and their lower_* builders, RWKV-6 bit for bit."""
+    steps and their lower_* builders under ``seq -> data`` (they run) and
+    ``seq -> model`` (``ValueError``), RWKV-6 bit for bit."""
     from repro_torch.configs import OptimizerConfig, ShapeConfig
     from repro_torch.launch import sharding as shd
     from repro_torch.launch.steps import (lower_prefill_step,
@@ -219,20 +222,25 @@ def _refusals(mesh2x1, mesh1x2, jax_dir):
     ruled = _greedy(model, 21, mesh2x1, rules)
     res["whole_bit_identical"] = all(torch.equal(plain[k], ruled[k])
                                      for k in plain)
-    # the prefill and the train step cut their sequence: refused
+    # the prefill and the train step cut their sequence over data and
+    # run; over model the logits' spec maps model twice
+    dup = _model("qwen2-7b", {}, jax_dir, mesh1x2)
     for what, call in (
-            ("prefill", lambda: make_prefill_step(
-                model, 20, backend="torch", mesh=mesh2x1)(
+            ("prefill", lambda m, mesh: make_prefill_step(
+                m, 20, backend="torch", mesh=mesh)(
                 {"tokens": torch.zeros((1, 16), dtype=torch.long)})),
-            ("loss", lambda: model.loss(
+            ("loss", lambda m, mesh: m.loss(
                 {"tokens": torch.zeros((1, 17), dtype=torch.long)},
                 backend="torch"))):
         with shd.axis_rules(mesh2x1, rules):
+            call(model, mesh2x1)
+            res[what] = "ran"
+        with shd.axis_rules(mesh1x2, {"seq": "model"}):
             try:
-                call()
-                res[what] = ""
-            except NotImplementedError as e:
-                res[what] = str(e)
+                call(dup, mesh1x2)
+                res[what + "_model"] = ""
+            except ValueError as e:
+                res[what + "_model"] = str(e)
     # the batch and the sequence both cut on data
     with shd.axis_rules(mesh2x1, rules):
         try:
@@ -240,21 +248,22 @@ def _refusals(mesh2x1, mesh1x2, jax_dir):
             res["batch_and_seq"] = ""
         except ValueError as e:
             res["batch_and_seq"] = str(e)
-    for what, lower in (("lower_prefill", lambda m: lower_prefill_step(
-            m, mesh2x1, ShapeConfig("p", 16, 1, "prefill"))),
-            ("lower_train", lambda m: lower_train_step(
-                m, OptimizerConfig(), mesh2x1,
+    for what, lower in (("lower_prefill", lambda m, mesh: lower_prefill_step(
+            m, mesh, ShapeConfig("p", 16, 1, "prefill"))),
+            ("lower_train", lambda m, mesh: lower_train_step(
+                m, OptimizerConfig(), mesh,
                 ShapeConfig("t", 16, 1, "train")))):
-        with shd.axis_rules(mesh2x1, rules):
-            meta = build_model(_cfg("qwen2-7b", {}), device="meta",
-                               mesh=mesh2x1)
-            try:
-                lower(meta)
-                res[what] = ""
-            except NotImplementedError as e:
-                res[what] = str(e)
+        for mesh, r, key in ((mesh2x1, rules, what),
+                             (mesh1x2, {"seq": "model"}, what + "_model")):
+            with shd.axis_rules(mesh, r):
+                meta = build_model(_cfg("qwen2-7b", {}), device="meta",
+                                   mesh=mesh)
+                try:
+                    lower(meta, mesh)
+                    res[key] = "ran"
+                except ValueError as e:
+                    res[key] = str(e)
     # Qwen2-7B's 2 KV heads and the sequence both on model
-    dup = _model("qwen2-7b", {}, jax_dir, mesh1x2)
     with torch.no_grad():
         _, cache = dup.prefill({"tokens": torch.from_numpy(_prompt(20))},
                                24, backend="torch")
@@ -497,8 +506,15 @@ def test_torch_cp_a_mesh_axis_mapped_twice_raises_as_the_reference(runs):
 @pytest.mark.parametrize("what", ["prefill", "loss", "lower_prefill",
                                   "lower_train"])
 def test_torch_cp_prefill_and_train_under_the_rule_are_refused(runs, what):
+    """Under ``seq -> data`` at batch 1 they run, context parallel; under
+    ``seq -> model`` they raise the ``ValueError`` of ``model`` mapped
+    twice (the sequence and the vocabulary), where the reference raises
+    ``DuplicateSpecError``; nothing names the old item 14.4."""
     for res in runs["res"]:
-        assert "item 14.4" in res["refusals"][what], res["refusals"][what]
+        ref = res["refusals"]
+        assert ref[what] == "ran", ref[what]
+        assert "'model'" in ref[what + "_model"], ref[what + "_model"]
+        assert "14.4" not in ref[what] + ref[what + "_model"]
 
 
 def test_torch_cp_rwkv6_decode_is_bit_identical_under_the_rule(runs):

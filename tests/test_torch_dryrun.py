@@ -16,7 +16,10 @@ process; Jamba's cells, most of the time, in processes of their own):
 every smoke configuration's ``train_4k`` cell ``ok`` on the 16 x 16 and
 the 2 x 16 x 16 mesh, with its terms and collectives, and ``long_500k``
 and the ``seqkv`` variant ``ok``, their decode's collectives those of the
-same decode without the rule plus the merge's all-reduces.
+same decode without the rule plus the merge's all-reduces; the ``seqkv``
+variant's ``train_4k`` and ``prefill_32k`` cells ``ok: false`` with the
+``ValueError`` of ``model`` mapped twice (the sequence and the
+vocabulary), where the reference raises ``DuplicateSpecError``.
 """
 import json
 import os
@@ -212,6 +215,12 @@ def _cells(mesh_name, group, out):
                                        save=False)
         res["seqkv_plain"] = dryrun.run_cell("qwen2-7b", "decode_32k",
                                              multi_pod=multi, save=False)
+        # the seqkv variant's train and prefill cells: their logits'
+        # spec maps model twice, as the reference's does
+        for shape in ("train_4k", "prefill_32k"):
+            res[f"seqkv_{shape}"] = dryrun.run_cell(
+                "qwen2-7b", shape, multi_pod=multi, variant="seqkv",
+                save=False)
     pathlib.Path(out).write_text(json.dumps(res, default=str))
 
 
@@ -268,6 +277,21 @@ def test_torch_long_500k_and_seqkv_are_ok(cells, mesh, cell):
     by_op = r["collectives"]["bytes_by_op"]
     assert by_op["all-reduce"] > 0
     assert r["roofline"]["flops_per_device"] > 0
+
+
+@pytest.mark.parametrize("mesh", ["single", "multi"])
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
+def test_torch_seqkv_train_and_prefill_cells_fail_as_the_reference(
+        cells, mesh, shape):
+    """Under ``seq -> model`` the smoke Qwen2's logits ``(batch, seq,
+    vocab)`` would map ``model`` twice (its 512-column padded vocabulary
+    and the sequence both divide by 16): the cell records ``ok: false``
+    with the ``ValueError``, as the reference's records its
+    ``DuplicateSpecError``; it is not refused."""
+    r = cells[mesh][f"seqkv_{shape}"]
+    assert not r["ok"]
+    assert r["error"].startswith("ValueError:"), r["error"]
+    assert "'model'" in r["error"], r["error"]
 
 
 if __name__ == "__main__":

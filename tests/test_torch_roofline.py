@@ -312,26 +312,40 @@ def _spec_under(cfg, mesh, rules):
 
 def test_torch_decode_takes_the_seq_rules_and_prefill_and_train_refuse_them():
     """The ``long_500k`` and ``seqkv`` rules bind; a decode step's one
-    position is not cut, while a prefill's and a train step's sequence
-    would be, and is refused naming item 14.4; where the batch and the
-    sequence both map to ``data``, the spec's ``ValueError``."""
+    position is not cut. A prefill's and a train step's sequence is
+    resolved as the reference's logits constraint resolves it
+    (``sharding.activation_axes``): under ``seq -> data`` cut over
+    ``data`` where the batch falls back, and where the batch and the
+    sequence both map to ``data``, the spec's ``ValueError``; under
+    ``seq -> model`` the sequence and the vocabulary both map to
+    ``model``: ``ValueError`` (the reference's ``DuplicateSpecError``),
+    and only where the vocabulary (or, for the encoder, the logits) is
+    not there to map it twice is the cut refused, naming item 14.5."""
     from repro_torch.launch.dryrun import apply_variant, cell_rules
     assert cell_rules("long_500k") == {"seq": "data"}
     assert cell_rules("train_4k") is None
     *_, rules, _ = apply_variant(tconfigs.get_model_config("qwen2-7b"),
                                  "seqkv")
     assert rules == {"seq": "model"}
+    V = tconfigs.get_model_config("qwen2-7b").padded_vocab()
     for r in (cell_rules("long_500k"), rules):
         with shd.axis_rules(stand_in(*SINGLE), r):
-            shd.require_whole_sequence(1, 1)             # decode
-            shd.require_whole_sequence(128, 1)
+            assert shd.activation_axes(1, 1, V) is None      # decode
+            assert shd.activation_axes(128, 1, V) is None
             for B, S in ((1, 524288), (32, 32768), (256, 4096)):
                 if r["seq"] == "data" and B % 16 == 0:
                     with pytest.raises(ValueError, match="'data'"):
-                        shd.require_whole_sequence(B, S)
-                    continue
-                with pytest.raises(NotImplementedError, match="item 14.4"):
-                    shd.require_whole_sequence(B, S)
+                        shd.activation_axes(B, S, V)
+                elif r["seq"] == "data":
+                    assert shd.activation_axes(B, S, V) == ("data",)
+                    assert shd.activation_axes(B, S) == ("data",)
+                else:
+                    with pytest.raises(ValueError, match="'model'"):
+                        shd.activation_axes(B, S, V)
+                    for vocab in (V + 8, None):
+                        with pytest.raises(NotImplementedError,
+                                           match="item 14.5"):
+                            shd.activation_axes(B, S, vocab)
 
 
 if __name__ == "__main__":

@@ -16,7 +16,9 @@ computed as that step computes them, each rank's gradient of a sharded
 leaf is its shard's, and the ring runs over ``pod`` on that shard, so the
 quantization blocks lie on the shard and the wire payload is shard-sized,
 as the reference's ``ring_leaf`` binds ``data`` and ``model`` manual
-around it. The clip norm sums the sharded leaves' squares over ``model``
+around it; a leaf that every rank keeps whole (a norm, or one the
+divisibility fallback replicates) goes through the ring whole, its
+gradient the same on every rank of ``model``. The clip norm sums the sharded leaves' squares over ``model``
 (``optim.adamw.ModelShards``).
 
 The ring leaves each pod with a different gradient (each adds its own at

@@ -62,7 +62,6 @@ import time
 import traceback
 from typing import Dict, Optional
 
-import torch
 import torch.distributed as dist
 
 from repro_torch.configs import (ARCH_IDS, SHAPES_BY_NAME, OptimizerConfig,
@@ -72,7 +71,6 @@ from repro_torch.launch.dryrun_variants import apply_variant_pure
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.roofline import extract_terms, model_flops
 from repro_torch.launch.steps import lower_step_for, lower_train_step
-from repro_torch.models import transformer as tfm
 from repro_torch.models.api import build_model
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
@@ -136,10 +134,9 @@ def _lower_variant(model, opt_cfg, mesh, shape, mb: int, int8pod: bool):
 
 def _fallbacks(model) -> list:
     """The (logical name, dim, divisor) fallbacks of the reference's rules
-    on the model's whole parameters, under the bound rules."""
-    tfm.param_spec({n: torch.empty(s, device="meta")
-                    for n, s in model.shapes.items()}, model.cfg)
-    return [list(f) for f in sorted(set(shd.fallbacks()))]
+    on the model's whole parameters, under the bound rules
+    (``Model.fallbacks``)."""
+    return [list(f) for f in model.fallbacks()]
 
 
 def cell_tag(arch: str, shape_name: str, mesh_name: str,

@@ -14,8 +14,10 @@ Axes:
     fabric tier from the paper's study, and the axis the int8 gradient
     ring targets.
 
-A ``model`` axis larger than 1 is tensor parallelism; which layer kinds
-have a tensor-parallel path is the models' to say
+A ``model`` axis larger than 1 is tensor parallelism: every layer kind
+has a tensor-parallel path, what the axis does not divide runs whole on
+every rank, and only a MoE's expert widths that it does not divide are
+refused, as the reference refuses them
 (``models.transformer.require_supported``). Meshes are made on
 ``"cuda"`` unless the caller names ``"cpu"``. :func:`axes_group` gives the
 process group over any subset of the axes. :func:`all_reduce` and
@@ -43,9 +45,6 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import MeshConfig
-
-TP_ITEM = ("ROADMAP.md Queue 1 item 11, its tensor-parallel half (a "
-           "'model' axis larger than 1)")
 
 # the reference's collective op kinds (HLO opcode names)
 COLLECTIVE_OPS = ("all-reduce", "all-gather", "reduce-scatter",

@@ -60,7 +60,15 @@ owns (bound by :func:`manual`), which the layers read, as the
 reference's ``moe_apply`` does, and then leave alone; :func:`runs_whole`
 marks ``model`` so around a layer whose width the axis does not divide,
 which then runs whole on every rank, as the reference's fallback
-replicates it. The reference's
+replicates it: a mixer whose heads (Mamba: inner channels) it does not
+divide, a dense MLP or RWKV-6's channel mix whose ``d_ff`` it does not
+divide, and the embedding, head and cross entropies at a padded
+vocabulary it does not divide (``models.transformer``). KV heads that
+neither divide nor are divided by it are kept whole and read as each
+rank's query heads need them (``models.attention.kv_read``). The one
+width the reference does not let fall back is a MoE's expert stacks,
+whose ``shard_map`` raises ``ValueError``: so does the port
+(``models.transformer.require_supported``). The reference's
 ``shard_map_mesh`` has none: each step of the port already runs per
 rank, on the bound mesh.
 :func:`current` / :func:`restored` carry the binding into a remat
@@ -154,7 +162,10 @@ def check_rules(mesh, rules: Optional[Dict]) -> None:
     step does not run, and is refused: ``seq`` bound to ``pod`` or to two
     axes, ``heads`` / ``kv_heads`` / ``ff`` / ``vocab`` mapped to anything
     but ``model``, ``batch`` or ``ddp`` off ``pod x data``, ``embed`` or
-    ``state`` bound to an axis."""
+    ``state`` bound to an axis. Under the rules the port honors, every
+    width the resolved specs replicate by the divisibility fallback runs
+    whole (the module's docstring), so a spec's fallback is carried out
+    as the reference's is."""
     if not rules:
         return
     shape = mesh_shape(mesh)
@@ -799,7 +810,11 @@ def tp_row_matmul(h: torch.Tensor, w: torch.Tensor, shard_name: str = "ff"
 
     Each rank's partial product is rounded to the product's dtype. Under
     ``REPRO_BF16_TP=1`` the partials are summed in that dtype (bf16 for a
-    bf16 model: the reference's explicit ``shard_map`` ``psum``).
+    bf16 model: the reference's explicit ``shard_map`` ``psum``); the
+    reference falls back to a plain matmul where the shapes do not divide
+    the mesh, and so does the port: a layer whose contraction width the
+    axis does not divide runs whole (:func:`runs_whole`), where
+    :func:`model_axis` is ``None`` and this is ``h @ w``.
     Otherwise they are summed in float32 and the sum rounded back: the
     reference leaves this sum to GSPMD, and its compiled HLO at a
     ``(data 1, model 2)`` mesh (``jax.jit(...).lower(...).compile()`` of

@@ -37,12 +37,16 @@ twice (``launch.sharding.activation_axes``).
 
 A ``model`` axis larger than 1 is tensor parallelism: the model must be
 built on the same mesh (``build_model(cfg, mesh=)``: it holds this rank's
-shards and runs its layers tensor parallel), and what it cannot split is
-refused (``models.transformer.require_supported``). A sharded
+shards and runs its layers tensor parallel), and a MoE expert width the
+axis does not divide is refused, as the reference refuses it
+(``models.transformer.require_supported``). A sharded
 leaf's gradient is this rank's shard's, and a replicated leaf's (a norm's,
-the router's) comes out equal on every model rank, so both are reduced
-over the batch axes only; the global norm for clipping sums the sharded
-leaves' squares over ``model`` (``optim.adamw.ModelShards``). The
+the router's, or one the divisibility fallback keeps whole: an MLP's
+whose width the axis does not divide, ``embed`` and ``lm_head`` at such a
+vocabulary) comes out equal on every model rank, so both are reduced
+over the batch axes only, and ZeRO-1 slices either over ``pod x data``;
+the global norm for clipping sums the sharded leaves' squares over
+``model`` (``optim.adamw.ModelShards``). The
 collectives of a step are counted by ``mesh.collective_counts``, those a
 remat recompute issues again included.
 

@@ -36,14 +36,18 @@ under the default rules is cut with :meth:`Model.cut_cache`). On a mesh whose
 ``model`` axis is larger than 1 the model holds only this rank's shard
 of each parameter, as :attr:`Model.spec` gives it
 (``transformer.tp_param_spec``), and runs tensor parallel (every layer
-kind has a tensor-parallel path); an MLP width or a padded vocabulary
-that the axis does not divide is refused when the model is built
+kind has a tensor-parallel path); a leaf whose width the axis does not
+divide (a mixer's heads, an MLP's width, the padded vocabulary) is held
+whole and its layer runs whole on every rank, as the reference's
+divisibility fallback replicates it, and a MoE's expert width that the
+axis does not divide is refused with ``ValueError`` when the model is
+built, as the reference's ``shard_map`` refuses it
 (``transformer.require_supported``).
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -108,6 +112,21 @@ class Model(nn.Module):
         if self.spec is not None:
             return dict(self.spec)
         return tfm.param_spec(dict(self._p().named_parameters()), self.cfg)
+
+    def fallbacks(self) -> List[Tuple[str, int, int]]:
+        """The divisibility fallbacks ``(logical name, dim, divisor)`` the
+        reference's rules make on this model's whole parameters, each
+        once, sorted (``launch.sharding.fallbacks`` after
+        :func:`repro_torch.models.transformer.param_spec`): under the bound
+        rules where its mesh is bound, else the mesh's defaults; ``[]``
+        without a mesh."""
+        if self.mesh is None:
+            return []
+        with self.bound():
+            seen = len(shd.fallbacks())
+            tfm.param_spec({n: torch.empty(s, device="meta")
+                            for n, s in self.shapes.items()}, self.cfg)
+            return sorted(set(shd.fallbacks()[seen:]))
 
     def bound(self):
         """A context binding the model's mesh (nothing without one, or

@@ -29,7 +29,18 @@ columns of ``wq`` / ``bq`` and rows of ``wo``, and its ``KV / tp`` KV
 heads' columns of ``wk`` / ``wv`` / ``bk`` / ``bv`` where ``tp`` divides
 ``KV``; RoPE, the ring cache and K4 run at the local heads, the cache
 holds only the local KV heads, and ``wo`` is a row-parallel product
-(``tp_row_matmul``). Where ``tp`` does not divide the query heads
+(``tp_row_matmul``). Where ``KV`` divides ``tp`` a rank's query heads
+fall in one KV group: every rank keeps the whole KV projection and
+computes, and caches, its group's head. Where neither divides the other
+(:func:`straddles`; Qwen2-VL-2B's 2 KV heads at ``model 3``) a rank's
+query heads read parts of two or more groups, not always evenly: every
+rank keeps the whole KV projection, as the reference's ``kv_heads``
+fallback replicates it, computes and caches every KV head, and hands K4
+the KV heads its query heads read (:func:`kv_read`): the run of them,
+where each serves as many of the rank's query heads (K4's uniform group
+maps them), or one KV head a query head (a group of 1), gathered by index,
+where they do not; the decode step reads the cache the same way. Where
+``tp`` does not divide the query heads
 (:func:`heads_sharded`; Qwen2-7B's 28 at ``model`` 16) every rank holds
 the whole attention and runs it whole, with no collective
 (``launch.sharding.runs_whole``): the reference's divisibility fallback,
@@ -144,21 +155,68 @@ def kv_sharded(cfg: ModelConfig, tp: int) -> bool:
     return cfg.padded_kv_heads() % tp == 0
 
 
+def straddles(cfg: ModelConfig, tp: int) -> bool:
+    """Whether a rank's query heads may read parts of two or more KV
+    groups on a ``model`` axis of ``tp``: where ``tp`` divides the query
+    heads (:func:`heads_sharded`) and neither it nor the KV heads divide
+    the other."""
+    KV = cfg.padded_kv_heads()
+    return heads_sharded(cfg, tp) and KV % tp != 0 and tp % KV != 0
+
+
 def local_heads(cfg: ModelConfig, tp: Optional[shd.ModelAxis]
                 ) -> Tuple[int, int, Optional[int]]:
-    """(query heads, KV heads, first KV head read) of this rank. Without a
-    model axis: (H, KV, None). Where the KV projection is sharded
-    (:func:`kv_sharded`): (H / tp, KV / tp, None). Otherwise ``tp`` is a
-    multiple of KV (``transformer.require_supported``) and this rank's
-    query heads all fall in one group: (H / tp, 1, that group's KV
-    head)."""
+    """(query heads, KV heads computed and cached, first of them) of this
+    rank. Without a model axis: (H, KV, None). Where the KV projection is
+    sharded (:func:`kv_sharded`): (H / tp, KV / tp, None). Where ``tp`` is
+    a multiple of KV this rank's query heads all fall in one group: (H /
+    tp, 1, that group's KV head). Where they straddle groups
+    (:func:`straddles`): (H / tp, KV, None), every KV head, of which
+    :func:`kv_read` says which the query heads read."""
     H, KV = cfg.padded_heads(), cfg.padded_kv_heads()
     if tp is None:
         return H, KV, None
     Hl = H // tp.size
     if kv_sharded(cfg, tp.size):
         return Hl, KV // tp.size, None
+    if straddles(cfg, tp.size):
+        return Hl, KV, None
     return Hl, 1, tp.index * Hl // (H // KV)
+
+
+KVRead = Tuple[int, int, Optional[Tuple[int, ...]]]
+
+
+def kv_read(cfg: ModelConfig, tp: Optional[shd.ModelAxis]
+            ) -> Optional[KVRead]:
+    """Where this rank's query heads straddle KV groups (:func:`straddles`):
+    (the first KV head they read, one past the last, and the KV head each
+    of them reads counted from the first, or ``None`` where each of those
+    KV heads serves as many of them: K4's uniform group then maps them).
+    At 12 query heads, 3 KV heads and ``model 4`` rank 1's heads 3-5 read
+    ``(0, 1, 1)`` of KV heads 0-1; at 12 and 2 and ``model 3`` rank 1's
+    heads 4-7 read KV heads 0 and 1, two heads each. ``None`` elsewhere."""
+    if tp is None or not straddles(cfg, tp.size):
+        return None
+    H, KV = cfg.padded_heads(), cfg.padded_kv_heads()
+    Hl = H // tp.size
+    groups = [(tp.index * Hl + j) // (H // KV) for j in range(Hl)]
+    lo, hi = groups[0], groups[-1] + 1
+    if len({groups.count(g) for g in range(lo, hi)}) == 1:
+        return lo, hi, None
+    return lo, hi, tuple(g - lo for g in groups)
+
+
+def _read(t: torch.Tensor, sel: Optional[KVRead]) -> torch.Tensor:
+    """The KV heads (dim 2 of ``t``, every KV head) this rank's query heads
+    read (:func:`kv_read`): their run (a view), or one a query head, by
+    index (a copy); ``t`` itself without ``sel``."""
+    if sel is None:
+        return t
+    lo, hi, idx = sel
+    if idx is None:
+        return t.narrow(2, lo, hi - lo)
+    return t[:, :, [lo + i for i in idx]]
 
 
 def cache_capacity(cfg: ModelConfig, max_len: int) -> int:
@@ -414,21 +472,20 @@ def _gqa_apply(
     parallel under a bound mesh (the module's docstring): the KV
     projection that every rank keeps whole enters with
     ``copy_to_model``, so that its gradient, of which each rank computes
-    its own query heads' part, is summed over ``model``."""
+    its own query heads' part, is summed over ``model``. Where they
+    straddle KV groups (:func:`kv_read`) every KV head is computed and
+    cached, and K4 and the decode read the rank's."""
     B, S, D = x.shape
     tp = shd.model_axis()
     H, KV, kv0 = local_heads(cfg, tp)
+    sel = kv_read(cfg, tp)
     Dh = cfg.resolved_head_dim()
     cut = None
     if mode == "decode" and cache is not None:
         C = getattr(cache, "capacity", cache["k"].shape[1])
         cut = kv_seq_cut(cfg, B, C, record=False)
         KV, kv0 = _cache_kv_heads(cfg, cut)
-    kv = {n: p[n] for n in (("wk", "wv", "bk", "bv") if cfg.qkv_bias
-                            else ("wk", "wv"))}
-    if kv0 is not None:
-        cols = slice(kv0 * Dh, (kv0 + KV) * Dh)
-        kv = {n: shd.copy_to_model(w)[..., cols] for n, w in kv.items()}
+    kv = _kv_leaves(p, cfg, KV, kv0, sel)
 
     x = shd.copy_to_model(x)
     q = x @ p["wq"]
@@ -451,8 +508,9 @@ def _gqa_apply(
             kv_all = shd.gather_seq(torch.cat([k, v], -1), block)
             k, v = kv_all[..., :Dh], kv_all[..., Dh:]
             q_offset = block.start
-        out = ops.attention(q, k, v, causal=causal, window=window,
-                            q_offset=q_offset, backend=backend)
+        out = ops.attention(q, _read(k, sel), _read(v, sel), causal=causal,
+                            window=window, q_offset=q_offset,
+                            backend=backend)
         new_cache = None
         if mode == "prefill":
             _gqa_fill(cfg, cache, k, v, pos0, tp)
@@ -469,17 +527,37 @@ def _gqa_apply(
         if cut is None:
             ck = _ring_write(cache["k"], k, pos0)
             cv = _ring_write(cache["v"], v, pos0)
-            out = ops.decode_attention(q, ck, cv, kv_len=eff_len,
-                                       backend=backend)
+            out = ops.decode_attention(q, _read(ck, sel), _read(cv, sel),
+                                       kv_len=eff_len, backend=backend)
         else:
             out = _cp_decode(q, k, v, cache, pos0, eff_len, C, start, cut,
-                             tp, backend)
+                             tp, backend, sel)
         new_cache = cache
     else:
         raise ValueError(mode)
 
     out = out.reshape(B, S, H * Dh)
     return shd.tp_row_matmul(out, p["wo"], "heads"), new_cache
+
+
+def _kv_leaves(p: nn.ParameterDict, cfg: ModelConfig, KV: int,
+               kv0: Optional[int], sel: Optional[KVRead]
+               ) -> Dict[str, torch.Tensor]:
+    """The KV projection's leaves (``wk``, ``wv`` and their biases) as a
+    rank reads them: its own where they are sharded, else the whole
+    leaves, entered with ``copy_to_model`` where the rank reads only part
+    of them (``KV`` heads from ``kv0``, or the KV heads ``sel`` picks), so
+    that their gradients, each rank's at its own query heads, are summed
+    over ``model``."""
+    kv = {n: p[n] for n in (("wk", "wv", "bk", "bv") if cfg.qkv_bias
+                            else ("wk", "wv"))}
+    if kv0 is not None:
+        Dh = cfg.resolved_head_dim()
+        cols = slice(kv0 * Dh, (kv0 + KV) * Dh)
+        return {n: shd.copy_to_model(w)[..., cols] for n, w in kv.items()}
+    if sel is not None:
+        return {n: shd.copy_to_model(w) for n, w in kv.items()}
+    return kv
 
 
 def _gqa_fill(cfg: ModelConfig, cache: SeqCache, k: torch.Tensor,
@@ -503,22 +581,26 @@ def _gqa_fill(cfg: ModelConfig, cache: SeqCache, k: torch.Tensor,
 
 def _cp_decode(q, k, v, cache, pos0, kv_len, capacity: int, start: int,
                cut: shd.SeqAxis, tp: Optional[shd.ModelAxis],
-               backend: str) -> torch.Tensor:
+               backend: str, sel: Optional[KVRead] = None) -> torch.Tensor:
     """Context-parallel GQA decode: the new token's k and v written on the
     rank whose block holds its slot; each rank's partial softmax over its
     block (the global slot masked by ``kv_len``), merged over the cut's
     axes. Where the sequence is cut on a ``model`` axis that also cuts the
     query heads, ``q`` is gathered over ``model`` first, the partials
-    taken for every head and this rank's heads kept after the merge."""
+    taken for every head and this rank's heads kept after the merge;
+    otherwise the rank's query heads read the KV heads ``sel`` picks
+    (:func:`kv_read`)."""
     _block_write(cache["k"], k, pos0, capacity, start)
     _block_write(cache["v"], v, pos0, capacity, start)
     ops.check_backend(backend, q)
     Hl = q.shape[2]
     gather = tp is not None and "model" in cut.axes
+    ck, cv = cache["k"], cache["v"]
     if gather:
         q = shd.gather_from_model(q, dim=2)
-    o, m, l = chunked.decode_partial(q, cache["k"], cache["v"],
-                                     kv_len=kv_len, offset=start)
+    else:
+        ck, cv = _read(ck, sel), _read(cv, sel)
+    o, m, l = chunked.decode_partial(q, ck, cv, kv_len=kv_len, offset=start)
     out = _merge(o, m, l, cut)
     if gather:
         out = out.narrow(2, tp.index * Hl, Hl)
@@ -559,13 +641,11 @@ def _cross_apply(
     ``memory`` entered with ``copy_to_model``, ``wo`` row-parallel."""
     B, S, D = x.shape
     Sm = memory.shape[1]
-    H, KV, kv0 = local_heads(cfg, shd.model_axis())
+    tp = shd.model_axis()
+    H, KV, kv0 = local_heads(cfg, tp)
+    sel = kv_read(cfg, tp)
     Dh = cfg.resolved_head_dim()
-    kv = {n: p[n] for n in (("wk", "wv", "bk", "bv") if cfg.qkv_bias
-                            else ("wk", "wv"))}
-    if kv0 is not None:
-        cols = slice(kv0 * Dh, (kv0 + KV) * Dh)
-        kv = {n: shd.copy_to_model(w)[..., cols] for n, w in kv.items()}
+    kv = _kv_leaves(p, cfg, KV, kv0, sel)
     x = shd.copy_to_model(x)
     memory = shd.copy_to_model(memory)
     q = x @ p["wq"]
@@ -575,8 +655,9 @@ def _cross_apply(
         q = q + p["bq"]
         k = k + kv["bk"]
         v = v + kv["bv"]
-    out = ops.attention(q.reshape(B, S, H, Dh), k.reshape(B, Sm, KV, Dh),
-                        v.reshape(B, Sm, KV, Dh), causal=False,
+    out = ops.attention(q.reshape(B, S, H, Dh),
+                        _read(k.reshape(B, Sm, KV, Dh), sel),
+                        _read(v.reshape(B, Sm, KV, Dh), sel), causal=False,
                         backend=backend)
     return shd.tp_row_matmul(out.reshape(B, S, H * Dh), p["wo"], "heads")
 

@@ -11,7 +11,12 @@ expert stacks on their ``d_ff_expert`` dim, as the reference's
 rank routes all its tokens, which are the same on every model rank, and
 runs every expert's F-shard), the output summed over ``model`` in its
 dtype (the reference's ``psum``), the shared expert F-sharded like a
-dense MLP.
+dense MLP. A dense MLP whose width the axis does not divide runs whole
+on every rank, with no collective, as the reference's divisibility
+fallback replicates its leaves (``launch.sharding.runs_whole``). The
+expert stacks have no such fallback: the reference's ``shard_map`` in-specs
+cut them on ``model`` whatever their width, and refuse one the axis does
+not divide (``ValueError``), as ``transformer.require_supported`` does.
 
 The MoE layer is the sort-based dropless formulation: the (token, choice)
 pairs are sorted by expert with a stable sort, each expert's contiguous
@@ -70,8 +75,24 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig,
     return nn.ParameterDict({k: param(v) for k, v in p.items()})
 
 
-def mlp_apply(p: nn.ParameterDict, x: torch.Tensor, *, cfg: ModelConfig
-              ) -> torch.Tensor:
+def dense_width(cfg: ModelConfig) -> int:
+    """The dense MLP's width: a MoE configuration's ``d_ff_dense`` where it
+    has one (its first dense layers), else ``d_ff``."""
+    return cfg.moe.d_ff_dense if (cfg.moe and cfg.moe.d_ff_dense) \
+        else cfg.d_ff
+
+
+def mlp_apply(p: nn.ParameterDict, x: torch.Tensor, *, cfg: ModelConfig,
+              d_ff: Optional[int] = None) -> torch.Tensor:
+    """The MLP of width ``d_ff`` (:func:`dense_width` by default): column-
+    then row-parallel under a model axis that divides the width, whole on
+    every rank otherwise (``launch.sharding.runs_whole``)."""
+    with shd.runs_whole(d_ff or dense_width(cfg)):
+        return _mlp_apply(p, x, cfg=cfg)
+
+
+def _mlp_apply(p: nn.ParameterDict, x: torch.Tensor, *, cfg: ModelConfig
+               ) -> torch.Tensor:
     x = shd.copy_to_model(x)
     if cfg.act == "swiglu":
         g = x @ p["w_gate"]
@@ -241,5 +262,6 @@ def moe_apply(p, x: torch.Tensor, *, cfg: ModelConfig, mean_aux: bool = True
     if mean_aux and block is None:
         aux = shd.mean_over_batch(aux)
     if mo.num_shared_experts > 0:
-        out = out + mlp_apply(p["shared"], x, cfg=cfg)
+        out = out + mlp_apply(p["shared"], x, cfg=cfg,
+                              d_ff=mo.d_ff_expert * mo.num_shared_experts)
     return out, aux

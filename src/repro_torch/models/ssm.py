@@ -246,7 +246,17 @@ def rwkv_cmix_apply(
     cache: Cache = None,           # {"last_x": (B, D)}
 ) -> Tuple[torch.Tensor, Cache]:
     """Under a model axis ``wk`` is column-parallel and ``wv``
-    row-parallel on ``d_ff``, ``wr`` whole on every rank."""
+    row-parallel on ``d_ff``, ``wr`` whole on every rank; where the axis
+    does not divide ``d_ff`` the channel mix runs whole on every rank, with
+    no collective (``launch.sharding.runs_whole``), as the reference's
+    fallback replicates ``wk``."""
+    with shd.runs_whole(cfg.d_ff):
+        return _rwkv_cmix_apply(p, x, cfg=cfg, mode=mode, cache=cache)
+
+
+def _rwkv_cmix_apply(p: nn.ParameterDict, x: torch.Tensor, *,
+                     cfg: ModelConfig, mode: str, cache: Cache
+                     ) -> Tuple[torch.Tensor, Cache]:
     last_x = cache["last_x"] if cache else None
     prev, tail = _shift(x, last_x,
                         shd.seq_block() if mode != "decode" else None)

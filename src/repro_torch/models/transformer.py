@@ -27,7 +27,14 @@ logits of ``forward`` are this rank's vocabulary columns) and both cross
 entropies (:func:`_logits_nll`: the max, the sum of exponentials and the
 target's logit each all-reduced over ``model``, in float32), and the
 prefill's and decode step's logits are gathered whole before they are
-returned, so a greedy argmax sees every column. A
+returned, so a greedy argmax sees every column. Where the axis does not
+divide the padded vocabulary, the reference's divisibility fallback
+replicates ``embed`` and ``lm_head``: every rank holds them whole and
+runs the embedding, the head and the cross entropies whole, with no
+collective (:func:`_whole_vocab`). The same fallback replicates an MLP
+(RWKV-6's channel mix too) whose width the axis does not divide
+(``models.mlp``, ``models.ssm``), and a mixer whose heads it does not
+divide (``models.attention``, ``models.ssm``). A
 configuration with ``mtp_depth > 0`` (DeepSeek-V3) carries the
 multi-token-prediction parameters, ``Params.mtp``, as the reference does;
 serving does not use them, its loss does (:func:`_mtp_loss`: its
@@ -188,44 +195,34 @@ TP_KINDS = SUPPORTED_KINDS
 
 
 def require_supported(mesh, cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` when ``cfg`` cannot run tensor
-    parallel on ``mesh``: an MLP width (RWKV-6's channel mix's ``d_ff``
-    too) or the padded vocabulary that the ``model`` axis does not divide
-    (the reference replicates those by ``resolve_spec``'s divisibility
-    fallback; ROADMAP Queue 1 item 11 queues it), or, in a GQA or cross
-    attention whose query heads it divides, KV heads that neither divide
-    nor are divided by it. No layer kind is refused (:data:`TP_KINDS`),
-    and a mixer whose heads (or Mamba's channels) the axis does not divide
-    runs whole on every rank (``launch.sharding.runs_whole``). Nothing is
-    refused on a mesh whose ``model`` axis is 1."""
+    """Raise ``ValueError`` where the reference refuses ``cfg`` on
+    ``mesh``: a MoE's expert stacks (``d_ff_expert``), or its shared
+    experts' width, that the ``model`` axis does not divide. The
+    reference's MoE runs them under ``jax.shard_map`` with in-specs that
+    cut them on ``model`` whatever their width, and ``shard_map`` raises
+    ``ValueError`` for a width the axis does not divide (its wording is
+    kept); the expert stacks have no divisibility fallback. Everything
+    else runs: a layer kind of :data:`TP_KINDS`, and whatever the axis
+    does not divide (a mixer's heads or channels, KV heads, an MLP's
+    width, the padded vocabulary) runs whole on every rank or, for KV
+    heads, is read as the rank's query heads need it, as the reference's
+    divisibility fallback replicates it (``launch.sharding.runs_whole``,
+    ``attention.kv_read``). Nothing is refused on a mesh whose ``model``
+    axis is 1."""
     tp = mesh_lib.model_size(mesh)
-    if tp <= 1:
+    if tp <= 1 or cfg.moe is None:
         return
-    item = mesh_lib.TP_ITEM
-    kinds = {(k.mixer, k.mlp, k.cross)
-             for k in (_kind(cfg, i) for i in range(cfg.num_layers))}
-    KV = cfg.padded_kv_heads()
-    widths = {"padded vocabulary": cfg.padded_vocab()}
-    if any(k[1] in ("dense", "cmix") for k in kinds):
-        widths["d_ff"] = cfg.moe.d_ff_dense if (cfg.moe and
-                                                cfg.moe.d_ff_dense) \
-            else cfg.d_ff
-    if cfg.moe is not None:
-        widths["d_ff_expert"] = cfg.moe.d_ff_expert
-        if cfg.moe.num_shared_experts:
-            widths["the shared experts' d_ff"] = \
-                cfg.moe.d_ff_expert * cfg.moe.num_shared_experts
-    for what, n in widths.items():
+    widths = {"w_gate": cfg.moe.d_ff_expert}
+    if cfg.moe.num_shared_experts:
+        widths["shared/w_gate"] = \
+            cfg.moe.d_ff_expert * cfg.moe.num_shared_experts
+    for leaf, n in widths.items():
         if n % tp:
-            raise NotImplementedError(
-                f"{cfg.name}: {what} {n} on a 'model' axis of {tp}, which "
-                f"does not divide it: the replicated fallback is not "
-                f"ported ({item})")
-    gqa = cfg.is_encoder_decoder or any(k[0] == "gqa" for k in kinds)
-    if gqa and attn.heads_sharded(cfg, tp) and KV % tp and tp % KV:
-        raise NotImplementedError(
-            f"{cfg.name}: {KV} KV heads on a 'model' axis of {tp}: a rank's "
-            f"query heads would read parts of two KV groups ({item})")
+            raise ValueError(
+                f"{cfg.name}: shard_map applied to the MoE's body was given "
+                f"argument arrays with axis sizes that are not evenly "
+                f"divisible by the corresponding mesh axis sizes: {leaf}'s "
+                f"width {n} on a 'model' axis of {tp}")
 
 
 # ---------------------------------------------------------------------------
@@ -300,9 +297,8 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: LayerKind, *,
     elif kind.mlp == "moe":
         p["mlp"] = mlpm.moe_init(gen, cfg, device=device, cut=cut)
     else:
-        d_ff = cfg.moe.d_ff_dense if (cfg.moe and cfg.moe.d_ff_dense) \
-            else cfg.d_ff
-        p["mlp"] = mlpm.mlp_init(gen, cfg, d_ff=d_ff, device=device)
+        p["mlp"] = mlpm.mlp_init(gen, cfg, d_ff=mlpm.dense_width(cfg),
+                                 device=device)
     return nn.ModuleDict(p)
 
 
@@ -572,25 +568,35 @@ def gather_cache(cache: Cache, cfg: ModelConfig) -> Cache:
     return _map_seq_caches(cache, lambda c: attn.gather_seq_cache(cfg, c))
 
 
+def _whole_vocab(cfg: ModelConfig):
+    """A context in which the embedding, the head, the cross entropies and
+    the logits' gather see no model axis where it does not divide the
+    padded vocabulary: the reference's fallback replicates ``embed`` and
+    ``lm_head``, and every rank reads the whole vocabulary."""
+    return shd.runs_whole(cfg.padded_vocab())
+
+
 def _lookup(p: Params, cfg: ModelConfig, tokens: torch.Tensor
             ) -> torch.Tensor:
     """The embedding rows of ``tokens`` in ``cfg.dtype``. The reference's
     jnp.take; as F.embedding, its gradient sums each row's contributions
     in float32 on the card and rounds once, where indexing's would round a
-    bfloat16 row after every addition. Vocab-parallel under a model axis:
-    this rank's rows, zero where the token is not in its range, summed
-    over ``model`` (one row is non-zero: exact)."""
+    bfloat16 row after every addition. Vocab-parallel under a model axis
+    that divides the padded vocabulary (:func:`_whole_vocab`): this rank's
+    rows, zero where the token is not in its range, summed over ``model``
+    (one row is non-zero: exact)."""
     dt = getattr(torch, cfg.dtype)
-    tp = shd.model_axis()
-    if tp is None:
-        return torch.nn.functional.embedding(tokens, p.embed).to(dt)
-    rows = p.embed.shape[0]
-    local = tokens - tp.index * rows
-    hit = (local >= 0) & (local < rows)
-    e = torch.nn.functional.embedding(local.clamp(0, rows - 1), p.embed)
-    e = torch.where(hit[..., None], e, torch.zeros((), dtype=e.dtype,
-                                                   device=e.device))
-    return shd.reduce_from_model(e).to(dt)
+    with _whole_vocab(cfg):
+        tp = shd.model_axis()
+        if tp is None:
+            return torch.nn.functional.embedding(tokens, p.embed).to(dt)
+        rows = p.embed.shape[0]
+        local = tokens - tp.index * rows
+        hit = (local >= 0) & (local < rows)
+        e = torch.nn.functional.embedding(local.clamp(0, rows - 1), p.embed)
+        e = torch.where(hit[..., None], e, torch.zeros((), dtype=e.dtype,
+                                                       device=e.device))
+        return shd.reduce_from_model(e).to(dt)
 
 
 def _embed(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -718,10 +724,12 @@ class Output:
 
 
 def _head(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """The logits; under a model axis this rank's vocabulary columns (a
-    tied head is its ``embed`` rows, transposed)."""
+    """The logits; under a model axis that cuts the vocabulary
+    (:func:`_whole_vocab`) this rank's vocabulary columns (a tied head is
+    its ``embed`` rows, transposed), else every column."""
     head = p.lm_head if p.lm_head is not None else p.embed.T
-    return shd.copy_to_model(x) @ head
+    with _whole_vocab(cfg):
+        return shd.copy_to_model(x) @ head
 
 
 def _embed_frames(p: Params, cfg: ModelConfig, enc_embeds: torch.Tensor,
@@ -844,7 +852,8 @@ def _logits_nll(logits: torch.Tensor, labels: torch.Tensor,
     vocabulary's columns masked to -1e30. Under a model axis ``logits``
     are this rank's columns: the largest logit, the sum of exponentials
     below it and the target's logit are each all-reduced over ``model``
-    (the last two with the identity for backward)."""
+    (the last two with the identity for backward). Where the vocabulary
+    is whole the callers bind ``_whole_vocab``."""
     lg = logits.float()
     tp = shd.model_axis()
     V = lg.shape[-1]
@@ -899,8 +908,9 @@ def _xent_chunked(p: Params, cfg: ModelConfig, hidden_normed: torch.Tensor,
     for a in range(0, S, C):
         b = min(a + C, S)
         logits = _head(p, cfg, hidden_normed[:, a:b])
-        total = total + (_logits_nll(logits, labels[:, a:b], cfg.vocab_size)
-                         * valid[:, a:b]).sum()
+        with _whole_vocab(cfg):
+            nll = _logits_nll(logits, labels[:, a:b], cfg.vocab_size)
+        total = total + (nll * valid[:, a:b]).sum()
     return _mean(total, valid.sum(), block)
 
 
@@ -927,7 +937,9 @@ def _mtp_loss(p: Params, cfg: ModelConfig, hidden: torch.Tensor,
     h = _norm(m.final_norm, h, eps, backend=backend)
     if cfg.loss_chunk > 0:
         return _xent_chunked(p, cfg, h, labels2, valid2, block)
-    return _xent(_head(p, cfg, h), labels2, valid2, cfg.vocab_size, block)
+    logits = _head(p, cfg, h)
+    with _whole_vocab(cfg):
+        return _xent(logits, labels2, valid2, cfg.vocab_size, block)
 
 
 def loss_fn(p: Params, batch: Dict[str, torch.Tensor], *, cfg: ModelConfig,
@@ -970,8 +982,9 @@ def loss_fn(p: Params, batch: Dict[str, torch.Tensor], *, cfg: ModelConfig,
         loss = _xent_chunked(p, cfg, out.logits, mine(labels), mine(valid),
                              block)
     else:
-        loss = _xent(out.logits, mine(labels), mine(valid), cfg.vocab_size,
-                     block)
+        with _whole_vocab(cfg):
+            loss = _xent(out.logits, mine(labels), mine(valid),
+                         cfg.vocab_size, block)
     metrics = {"lm_loss": loss}
     if cfg.moe is not None:
         metrics["aux_loss"] = out.aux_loss
@@ -1016,8 +1029,9 @@ def prefill(p: Params, batch: Dict[str, torch.Tensor], *, cfg: ModelConfig,
     if out.block is not None:
         last = shd.gather_seq(last, out.block)[:, -1:]
     last = last[:, 0]
-    return (last.clone() if shd.model_axis() is None
-            else shd.gather_from_model(last)), out.cache
+    with _whole_vocab(cfg):
+        return (last.clone() if shd.model_axis() is None
+                else shd.gather_from_model(last)), out.cache
 
 
 def decode_step(
@@ -1044,7 +1058,8 @@ def decode_step(
         batch["memory"] = memory
     out = forward(p, batch, cfg=cfg, mode="decode", cache=cache, pos0=pos,
                   backend=backend)
-    return shd.gather_from_model(out.logits[:, 0]), out.cache
+    with _whole_vocab(cfg):
+        return shd.gather_from_model(out.logits[:, 0]), out.cache
 
 
 # ---------------------------------------------------------------------------
@@ -1215,7 +1230,11 @@ def _tp_leaf(cfg: ModelConfig, kind: LayerKind, part: str, leaf: str,
     elif part == "mlp" and kind.mlp == "cmix":
         # the reference's name-keyed rules give the channel mix's wk / wv
         # the attention's ("embed", "heads"), which cuts wv's output
-        # columns; the port runs wv row-parallel on d_ff, and wr whole
+        # columns; the port runs wv row-parallel on d_ff, and wr whole;
+        # all three whole where the axis does not divide d_ff (wk's
+        # fallback in the reference)
+        if cfg.d_ff % tp:
+            return whole
         if leaf == "wv":
             return ("model", None)
         if leaf == "wr":
@@ -1241,7 +1260,11 @@ def tp_param_spec(cfg: ModelConfig, mesh) -> Dict[str, Tuple]:
     ``bv`` where it does not divide the KV heads
     (``attention.kv_sharded``); Mamba's ``in_proj`` cut half by half
     (``launch.sharding.Halves``); the channel mix's ``wv`` row-parallel
-    and ``wr`` whole."""
+    and ``wr`` whole, or all its leaves whole where the axis does not
+    divide ``d_ff``. A dense MLP's leaves (``w_gate``, ``w_up``,
+    ``w_down``, ``b_up``) and ``embed`` / ``lm_head`` whose width the axis
+    does not divide are whole by the reference's own fallback, which
+    ``launch.sharding.fallbacks`` records."""
     with torch.device("meta"):
         meta = init_params(cfg, torch.Generator(), device="meta")
     named = dict(meta.named_parameters())

@@ -26,8 +26,10 @@ for all five configurations and at ``(2, 2)``;
 ``REPRO_BF16_TP`` on and off; the collectives of a prefill and of a
 decode step, counted; every rank returning the same; query heads that
 ``model 4`` does not divide (six) running whole on every rank against
-one process; and the layer kinds that had no tensor-parallel path
-before ``tests/test_torch_tp_mixers.py``'s taken.
+one process; the layer kinds that had no tensor-parallel path
+before ``tests/test_torch_tp_mixers.py``'s taken; and the widths the
+axis does not divide taken (``tests/test_torch_tp_fallback.py`` runs
+them), but a MoE's expert width, refused as the reference refuses it.
 """
 import json
 import os
@@ -624,17 +626,41 @@ def test_torch_tp_layer_kinds_without_a_path_are_refused(arch):
         types.SimpleNamespace(shape={"data": 2, "model": 1}), cfg)
 
 
-def test_torch_tp_widths_the_model_axis_does_not_divide_are_refused():
-    """An MLP width and KV heads that a ``model`` axis of 4 does not fit
-    are refused (query heads it does not divide run whole instead:
+@pytest.mark.parametrize("what", ["d_ff", "KV heads", "vocabulary",
+                                  "d_ff_expert"])
+def test_torch_tp_widths_the_model_axis_does_not_divide_are_refused(what):
+    """Of the widths that a ``model`` axis of 4 does not divide, only a
+    MoE's expert width is refused, with ``ValueError``, as the reference's
+    ``shard_map`` refuses it. An MLP width, KV heads that neither divide
+    nor are divided by the axis and the padded vocabulary, refused until
+    the divisibility fallback was ported, are taken: ``build_model``
+    builds on the mesh, the leaves that carry them whole on every rank
+    (``tests/test_torch_tp_fallback.py`` runs them on ranks; query heads
+    the axis does not divide run whole too:
     ``test_torch_tp_query_heads_the_axis_does_not_divide_run_whole``)."""
+    from repro_torch import configs
     from repro_torch.models import transformer as tfm
-    for cfg, what in ((_cfg("qwen2-7b", d_ff=250), "d_ff"),
-                      (_cfg("qwen2-7b", num_heads=12, num_kv_heads=3),
-                       "KV heads")):
-        with pytest.raises(NotImplementedError, match=what):
-            tfm.require_supported(
-                types.SimpleNamespace(shape={"data": 1, "model": 4}), cfg)
+    from repro_torch.models.api import build_model
+    stand = types.SimpleNamespace(shape={"data": 1, "model": 4})
+    if what == "d_ff_expert":
+        cfg = configs.get_model_config("mixtral-8x7b", smoke=True)
+        cfg = cfg.replace(moe=cfg.moe.__class__(
+            **dict(cfg.moe.__dict__, d_ff_expert=62)))
+        with pytest.raises(ValueError, match="not evenly divisible"):
+            tfm.require_supported(stand, cfg)
+        with pytest.raises(ValueError, match="not evenly divisible"):
+            build_model(cfg, device="cpu", mesh=stand)
+        return
+    kw, leaf = {"d_ff": (dict(d_ff=250), "blocks.0.mlp.w_down"),
+                "KV heads": (dict(num_heads=12, num_kv_heads=3),
+                             "blocks.0.mixer.wk"),
+                "vocabulary": (dict(vocab_size=510, pad_vocab_to=1),
+                               "embed")}[what]
+    cfg = _cfg("qwen2-7b", **kw)
+    tfm.require_supported(stand, cfg)
+    spec = build_model(cfg, device="cpu", mesh=stand).spec
+    assert set(spec[leaf]) == {None}
+    assert spec["blocks.0.mixer.wq"] == (None, "model")
 
 
 def test_torch_tp_query_heads_the_axis_does_not_divide_run_whole(runs):

@@ -47,8 +47,8 @@ import torch.distributed as dist
 from repro_torch.configs.base import OptimizerConfig, ShapeConfig
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sharding as shd
-from repro_torch.launch.steps import (_batch_size, _grads, _rank_batch,
-                                      batch_cut, require_model_on,
+from repro_torch.launch.steps import (_batch_size, _grads, batch_cut,
+                                      rank_slice, require_model_on,
                                       trace_train)
 from repro_torch.models import transformer as tfm
 from repro_torch.models.api import Model
@@ -87,8 +87,7 @@ def make_compressed_train_step(model: Model, opt_cfg: OptimizerConfig,
             # the reference's shard_map takes the batch cut on 'pod'
             raise ValueError(f"a batch of {B} does not split over the "
                              f"{shape['pod']} ranks of 'pod'")
-        local = _rank_batch(batch, mesh)
-        with shd.manual(("pod",)):
+        with rank_slice(batch, mesh) as local, shd.manual(("pod",)):
             grads, metrics = _grads(model, params, local, backend)
         # the pod's gradient (its data-axis mean), then the int8 pod ring,
         # each on this rank's shard

@@ -52,15 +52,18 @@ COLLECTIVE_OPS = ("all-reduce", "all-gather", "reduce-scatter",
 
 _COUNTS: Counter = Counter()
 _BYTES: Counter = Counter()
+_GROUP_COUNTS: Dict[object, Counter] = {}
 _TIMER = {"on": False, "s": 0.0}
 
 
 def count(kind: str, n: int = 1, *, op: Optional[str] = None,
-          nbytes: int = 0) -> None:
-    """Count ``n`` collectives of ``kind``; with ``op`` (one of
-    :data:`COLLECTIVE_OPS`) add the ``nbytes`` of operand they sent to
-    :func:`collective_bytes`."""
+          nbytes: int = 0, group=None) -> None:
+    """Count ``n`` collectives of ``kind`` (over ``group`` too, when it is
+    given); with ``op`` (one of :data:`COLLECTIVE_OPS`) add the
+    ``nbytes`` of operand they sent to :func:`collective_bytes`."""
     _COUNTS[kind] += n
+    if group is not None:
+        _GROUP_COUNTS.setdefault(group, Counter())[kind] += n
     if op is not None:
         if op not in COLLECTIVE_OPS:
             raise ValueError(f"unknown collective op {op!r}")
@@ -104,11 +107,13 @@ class _Timed:
             _TIMER["s"] += time.perf_counter() - self.t
 
 
-def collective_counts() -> Dict[str, int]:
+def collective_counts(group=None) -> Dict[str, int]:
     """Collectives issued by this process since
     :func:`reset_collective_counts`: ``all_reduce``, ``all_gather``,
-    ``p2p`` (sends and receives) and ``barrier``."""
-    return dict(_COUNTS)
+    ``p2p`` (sends and receives) and ``barrier``; with ``group``, the
+    :func:`all_reduce` and :func:`all_gather` calls over that group."""
+    return dict(_COUNTS if group is None else
+                _GROUP_COUNTS.get(group, Counter()))
 
 
 def collective_bytes() -> Dict[str, int]:
@@ -121,6 +126,7 @@ def collective_bytes() -> Dict[str, int]:
 def reset_collective_counts() -> None:
     _COUNTS.clear()
     _BYTES.clear()
+    _GROUP_COUNTS.clear()
 
 
 def _init_device_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
@@ -266,7 +272,7 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
         if not x.is_meta:
             dist.all_reduce(x, op=dist.ReduceOp.SUM if op == "sum"
                             else dist.ReduceOp.MAX, group=group)
-    count("all_reduce", op="all-reduce", nbytes=nbytes(x))
+    count("all_reduce", op="all-reduce", nbytes=nbytes(x), group=group)
     return x
 
 
@@ -280,5 +286,5 @@ def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     with _Timed(x):
         if not x.is_meta:
             dist.all_gather(parts, x, group=group)
-    count("all_gather", op="all-gather", nbytes=nbytes(x))
+    count("all_gather", op="all-gather", nbytes=nbytes(x), group=group)
     return torch.cat(parts, dim=dim)

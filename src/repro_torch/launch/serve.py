@@ -19,11 +19,14 @@ holding its shards), each rank serves its slice of the request batch by
 its coordinate on the axes its resolved spec cuts it on (``pod x data``
 where they divide it; the whole batch where none does, as the reference
 replicates it), and the tokens are gathered over those axes at the end,
-so every rank returns the whole batch. Under rules the caller binds on
-the mesh (``launch.sharding.axis_rules(mesh, {"seq": "data"})`` around
-the call) a batch that does not divide is context parallel: each rank
-prefills its block of the prompt (``models.transformer.forward``) into
-its blocks of the cache, which the decode steps then run on.
+so every rank returns the whole batch (``launch.steps.rank_slice``,
+which keeps the global batch's size bound while the rank serves its
+slice). Under rules the caller binds on the mesh
+(``launch.sharding.axis_rules(mesh, {"seq": "data"})`` or ``{"seq":
+"model"}`` around the call) the prompt is context parallel wherever the
+reference cuts it: each rank prefills its block of the prompt
+(``models.transformer.forward``) into its blocks of the cache, which the
+decode steps then run on.
 
 Run it as ``PYTHONPATH=src python -m repro_torch.launch.serve`` (smoke
 configuration, seeded random weights); under ``torchrun`` it serves over
@@ -44,8 +47,8 @@ import torch.distributed as dist
 from repro_torch.configs import PacingConfig, get_model_config
 from repro_torch.core import CoordinationAgent
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.launch.steps import (_local, batch_cut, make_decode_step,
-                                      make_prefill_step)
+from repro_torch.launch.steps import (batch_cut, make_decode_step,
+                                      make_prefill_step, rank_slice)
 from repro_torch.models.api import Model, build_model
 
 
@@ -100,31 +103,27 @@ def generate(
     if not isinstance(prompt_tokens, torch.Tensor):
         prompt_tokens = torch.from_numpy(np.asarray(prompt_tokens))
     tokens = prompt_tokens.to(device=dev, dtype=torch.long)
-    axes, dp, idx = ((), 1, 0) if mesh is None else \
+    axes, dp, _ = ((), 1, 0) if mesh is None else \
         batch_cut(mesh, tokens.shape[0])
-    if dp > 1:
-        batch_group = mesh_lib.axes_group(mesh, axes)
-        tokens = _local({"tokens": tokens}, dp, idx)["tokens"]
-        if enc_embeds is not None:
-            enc_embeds = _local({"e": torch.as_tensor(enc_embeds)}, dp,
-                                idx)["e"]
-    B, S = tokens.shape
-    max_len = S + max_new_tokens
+    batch = {"tokens": tokens}
+    if cfg.is_encoder_decoder:
+        if not isinstance(enc_embeds, torch.Tensor):
+            enc_embeds = torch.from_numpy(np.asarray(enc_embeds))
+        batch["enc_embeds"] = enc_embeds.to(dev)
+    max_len = tokens.shape[1] + max_new_tokens
     prefill = make_prefill_step(model, max_len=max_len, backend=backend,
                                 mesh=mesh)
     decode = make_decode_step(model, backend=backend, mesh=mesh)
     step_s = []
 
-    with torch.inference_mode():
+    with torch.inference_mode(), rank_slice(batch, mesh) as local:
+        tokens = local["tokens"]
+        B, S = tokens.shape
         t0 = time.perf_counter()
-        batch = {"tokens": tokens}
         memory = None
         if cfg.is_encoder_decoder:
-            if not isinstance(enc_embeds, torch.Tensor):
-                enc_embeds = torch.from_numpy(np.asarray(enc_embeds))
-            memory = model.encode(enc_embeds.to(dev), backend=backend)
-            batch["memory"] = memory
-        logits, cache = prefill(batch)
+            memory = model.encode(local["enc_embeds"], backend=backend)
+        logits, cache = prefill({"tokens": batch["tokens"]}, memory)
         _sync(dev)
         prefill_s = time.perf_counter() - t0
         out = [tokens]
@@ -149,7 +148,7 @@ def generate(
         stats.update(prefill_s=prefill_s, decode_s=step_s)
     out = torch.cat(out, dim=1)
     if dp > 1:
-        out = mesh_lib.all_gather(out, batch_group, 0)
+        out = mesh_lib.all_gather(out, mesh_lib.axes_group(mesh, axes), 0)
     return out, agent.summary()
 
 

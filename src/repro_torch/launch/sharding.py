@@ -21,19 +21,35 @@ decode cache's sequence, as the reference's cache spec does;
 the attention layers read it (``models.attention``: each rank's partial
 softmax over its block, merged over the axes). In a prefill or a train
 step the rule cuts the activations' sequence, as the reference's
-``logical(x, "batch", "seq", "embed")`` does where the batch falls back:
+``logical(x, "batch", "seq", "embed")`` does:
 :func:`activation_axes` resolves the cut as the reference's logits
 constraint ``("batch", "seq", "vocab")`` would (``ValueError`` where it
-maps one axis twice, the reference's ``DuplicateSpecError``),
-:func:`activation_cut` gives this rank's :class:`SeqBlock`, and
-:func:`cut_sequence` binds it for the layers (:func:`seq_block`), which
-see the rest of the sequence through :func:`gather_seq` (an all-gather
-whose backward sums the gradients over the axis), :func:`halo` (the
-previous block's last rows) and :func:`relay_scan` (a recurrence's state
-handed from block to block); :func:`sum_over_seq` makes a loss the whole
-sequence's. Only a cut over ``data`` beside a batch that falls back
-whole is carried out; the others the reference runs are refused
-(``NotImplementedError``, ROADMAP item 14.5).
+maps one axis twice, the reference's ``DuplicateSpecError``), on the
+global batch (bound by ``launch.steps.rank_slice``, which hands a rank
+its slice of it), :func:`activation_cut` gives this
+rank's :class:`SeqBlock`, and :func:`cut_sequence` binds it for the
+layers (:func:`seq_block`). Two cuts run, as the reference runs them:
+
+* over ``data`` (or beside a batch cut over ``pod``): a layer runs on
+  the block and sees the rest of the sequence through
+  :func:`gather_seq` (an all-gather whose backward sums the gradients
+  over the axis), :func:`halo` (the previous block's last rows) and
+  :func:`relay_scan` (a recurrence's state handed from block to block);
+  each rank's gradient is its blocks' share of ``n`` times the whole
+  loss's (:func:`sum_over_seq`), and the step's mean over ``pod x data``
+  divides the ``n`` back out;
+* over ``model`` (where the vocabulary falls back, and in the encoder):
+  sequence parallelism. A layer whose width the axis cuts
+  (:func:`tp_layer`) enters with the block all-gathered over ``model``
+  and runs its shard on the whole sequence, tensor parallel as without
+  the cut, then leaves through the row-parallel all-reduce and this
+  rank's slice (a reduce-scatter); a layer that runs whole runs on the
+  block as a cut over ``data`` does, over the ``model`` group. Each
+  rank's gradient is the whole loss's (``model`` is no batch axis): a
+  leaf that every rank keeps whole but applies to its block (the norms,
+  the embedding and head at the whole vocabulary, a layer that runs
+  whole) enters through :func:`block_leaf`, whose backward sums it over
+  ``model``.
 ``resolve_spec`` reads only the mesh's axis sizes, so the bound mesh may
 be a ``DeviceMesh`` or anything with an ordered ``shape`` mapping (the
 production sizes, with no ranks behind them).
@@ -115,18 +131,15 @@ class _Ctx(threading.local):
         self.fallbacks: List[Tuple[str, int, int]] = []
         self.manual: FrozenSet[str] = frozenset()
         self.block: Optional["SeqBlock"] = None
+        self.batch: Optional[int] = None
 
 
 _ctx = _Ctx()
 
 
-# the ROADMAP.md item of the overrides the layers do not carry out, and
-# of a sequence cut in the activations (a prefill's or a train step's)
+# the ROADMAP.md item of the overrides the layers do not carry out
 _OTHER_ITEM = ("ROADMAP.md Queue 1 item 14.3 (axis-rule overrides the "
                "layers do not read)")
-SEQ_ACTIVATIONS_ITEM = ("ROADMAP.md Queue 1 item 14.5 (the activations' "
-                        "sequence cut over 'model', or beside a batch cut "
-                        "over 'pod')")
 # the axes the 'seq' rule may bind: the cache's sequence cut over either
 SEQ_AXES = ("data", "model")
 
@@ -235,20 +248,37 @@ def runs_whole(width: int):
     return manual(("model",))
 
 
-def current() -> Tuple[Any, Any, FrozenSet[str], Optional["SeqBlock"]]:
-    """The binding in force: (mesh, rules, manual axes, sequence block)."""
-    return _ctx.mesh, _ctx.rules, _ctx.manual, _ctx.block
+def current() -> Tuple[Any, ...]:
+    """The binding in force: (mesh, rules, manual axes, sequence block,
+    global batch)."""
+    return _ctx.mesh, _ctx.rules, _ctx.manual, _ctx.block, _ctx.batch
 
 
 @contextlib.contextmanager
-def restored(state: Tuple[Any, Any, FrozenSet[str], Optional["SeqBlock"]]):
+def restored(state: Tuple[Any, ...]):
     """Bind what :func:`current` returned, for the duration."""
     prev = current()
-    _ctx.mesh, _ctx.rules, _ctx.manual, _ctx.block = state
+    _ctx.mesh, _ctx.rules, _ctx.manual, _ctx.block, _ctx.batch = state
     try:
         yield
     finally:
-        _ctx.mesh, _ctx.rules, _ctx.manual, _ctx.block = prev
+        _ctx.mesh, _ctx.rules, _ctx.manual, _ctx.block, _ctx.batch = prev
+
+
+@contextlib.contextmanager
+def _global_batch(size: Optional[int]):
+    """Bind the size of the global batch of which a rank holds a slice,
+    for the duration; only ``launch.steps.rank_slice``, which takes the
+    slice, binds it. The activations' cut (:func:`activation_axes`) and a
+    MoE's tokens (:func:`replicated_rows`) are resolved on it, as the
+    reference resolves them on its global arrays. Unbound, the batch a
+    layer sees is taken to be the global one."""
+    prev = _ctx.batch
+    _ctx.batch = size
+    try:
+        yield
+    finally:
+        _ctx.batch = prev
 
 
 def fallbacks() -> List[Tuple[str, int, int]]:
@@ -390,42 +420,30 @@ def activation_axes(batch: int, seq_len: int, vocab: Optional[int] = None
     Resolved as the reference's constraints resolve it: the logits'
     ``("batch", "seq", "vocab")`` on ``(batch, seq_len, vocab)`` (without
     ``vocab``, the encoder's ``("batch", "seq", "embed")``), whenever the
-    rule binds an axis of the mesh, of any size. A length the axes do not
-    divide stays whole, the fallback recorded;
-    a mesh axis mapped twice raises ``ValueError`` (the reference's
-    ``DuplicateSpecError``): the batch and the sequence on ``data`` where
-    the batch divides, the sequence and the vocabulary on ``model``. A cut
-    the reference runs but the port does not carry out raises
-    ``NotImplementedError`` (:data:`SEQ_ACTIVATIONS_ITEM`): the sequence
-    over ``model`` (the vocabulary falls back, or there is none), or beside
-    a batch cut over ``pod``."""
+    rule binds an axis of the mesh, of any size; ``batch`` is the global
+    batch where ``launch.steps.rank_slice`` binds one. A length the axes
+    do not divide stays whole, the fallback recorded; a mesh axis mapped twice
+    raises ``ValueError`` (the reference's ``DuplicateSpecError``): the
+    batch and the sequence on ``data`` where the batch divides, the
+    sequence and the vocabulary on ``model`` where the vocabulary
+    divides. Every other cut runs: the sequence over ``data`` beside a
+    batch that falls back whole or is cut over ``pod``, and over
+    ``model`` beside a vocabulary that falls back, or in the encoder."""
     mesh = _ctx.mesh
     if mesh is None:
         return None
     sizes = mesh_shape(mesh)
     if not _mesh_axes_for("seq", sizes):
         return None
-    shape, spec = (batch, seq_len), ("batch", "seq")
+    shape, spec = (_ctx.batch or batch, seq_len), ("batch", "seq")
     if vocab is not None:
         shape, spec = shape + (vocab,), spec + ("vocab",)
-    out = resolve_spec(shape, spec)
-
-    def size(e):
-        n = 1
-        for a in ((e,) if isinstance(e, str) else e or ()):
-            n *= sizes[a]
-        return n
-
-    if size(out[1]) <= 1:
-        return None
-    axes = (out[1],) if isinstance(out[1], str) else tuple(out[1])
-    if "model" in axes or size(out[0]) > 1:
-        raise NotImplementedError(
-            f"the 'seq' rule cuts the activations' sequence of {seq_len} "
-            f"over {axes} with the batch of {batch} on {out[0]!r}: the port "
-            f"cuts it over 'data' beside a batch that falls back whole "
-            f"({SEQ_ACTIVATIONS_ITEM})")
-    return axes
+    e = resolve_spec(shape, spec)[1]
+    axes = () if e is None else ((e,) if isinstance(e, str) else tuple(e))
+    n = 1
+    for a in axes:
+        n *= sizes[a]
+    return axes if n > 1 else None
 
 
 def batch_axes_of(batch: int) -> Tuple[str, ...]:
@@ -464,7 +482,7 @@ def check_logits(batch: int, length: int, vocab: int) -> None:
     chunked loss); nothing is recorded."""
     if _ctx.mesh is not None and \
             _mesh_axes_for("seq", mesh_shape(_ctx.mesh)):
-        _resolve_unrecorded((batch, length, vocab),
+        _resolve_unrecorded((_ctx.batch or batch, length, vocab),
                             ("batch", "seq", "vocab"))
 
 
@@ -484,6 +502,148 @@ def seq_block() -> Optional[SeqBlock]:
     """The sequence block bound by :func:`cut_sequence`, ``None`` where the
     activations run whole."""
     return _ctx.block
+
+
+def block_rows(t: Optional[torch.Tensor], dim: int = 1
+               ) -> Optional[torch.Tensor]:
+    """This rank's rows of ``t``, a whole sequence's along ``dim`` (the
+    positions), where a block is bound; ``t`` itself otherwise."""
+    block = _ctx.block
+    if t is None or block is None:
+        return t
+    return t.narrow(dim, block.start, block.length)
+
+
+def _model_cut(block: Optional[SeqBlock]) -> bool:
+    """Whether ``block`` is cut over ``model`` (sequence parallelism)."""
+    return block is not None and "model" in block.axis.axes
+
+
+class _EnterSeq(torch.autograd.Function):
+    """Every rank's block concatenated along dim 1 (one all-gather); the
+    backward keeps this rank's rows of a gradient that every rank holds
+    whole and alike (the tensor-parallel layer's ``copy_to_model`` has
+    summed it over ``model``)."""
+
+    @staticmethod
+    def forward(ctx, x, block):
+        ctx.block = block
+        return mesh_lib.all_gather(x, block.axis.group, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        b = ctx.block
+        return g.narrow(1, b.start, b.length), None
+
+
+class _LeaveSeq(torch.autograd.Function):
+    """This rank's rows (dim 1) of a whole sequence that every rank holds
+    alike; the backward gathers every rank's rows' gradient (one
+    all-gather), which is then whole and alike on every rank."""
+
+    @staticmethod
+    def forward(ctx, y, block):
+        ctx.block = block
+        return y.narrow(1, block.start, block.length).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return mesh_lib.all_gather(g, ctx.block.axis.group, 1), None
+
+
+def enter_seq(x: torch.Tensor, block: SeqBlock) -> torch.Tensor:
+    """The whole sequence from every rank's block ``x`` of a sequence cut
+    over ``model``, for a tensor-parallel layer (:func:`tp_layer`) or the
+    encoder's memory, whose gradient arrives whole on every rank: one
+    all-gather, and in the backward this rank's rows, no collective."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _EnterSeq.apply(x, block)
+    return mesh_lib.all_gather(x, block.axis.group, 1)
+
+
+def leave_seq(y: torch.Tensor, block: SeqBlock) -> torch.Tensor:
+    """This rank's block of ``y``, a whole sequence every rank of ``model``
+    holds alike (the row-parallel product's all-reduce has summed it):
+    with that all-reduce a reduce-scatter; the backward all-gathers the
+    blocks' gradients."""
+    if torch.is_grad_enabled() and y.requires_grad:
+        return _LeaveSeq.apply(y, block)
+    return y.narrow(1, block.start, block.length).contiguous()
+
+
+def block_leaf(w: torch.Tensor) -> torch.Tensor:
+    """``w``, a leaf (or a whole tensor: the encoder's memory) that every
+    rank of ``model`` keeps whole and applies to its block of a sequence
+    cut over ``model``, entered with a backward that sums its gradient
+    over the axis, so that it is the whole sequence's on every rank. ``w``
+    itself where no such block is bound, or no gradient is taken."""
+    block = _ctx.block
+    if not _model_cut(block) or not (torch.is_grad_enabled()
+                                     and w.requires_grad):
+        return w
+    return _CopyToModel.apply(w, block.axis.group)
+
+
+def tp_layer(width: int, fn: Callable, p, x: torch.Tensor, *whole,
+             **kw):
+    """``fn(p, x, *whole, **kw)``, a layer of ``width`` heads, channels or
+    ``ff`` columns, on this rank, returning its output (with, as a tuple,
+    what follows it: a cache, an aux loss). Where the ``model`` axis does
+    not divide ``width`` the layer runs whole on every rank, ``model``
+    manual inside (:func:`runs_whole`: the reference's fallback); on a
+    block of a sequence cut over ``model`` its leaves and ``whole`` (the
+    encoder's memory) then enter through :func:`block_leaf`. Where the
+    axis divides ``width`` and the sequence is cut over it (sequence
+    parallelism) the layer runs its shard on the whole sequence: ``x``
+    gathered (:func:`enter_seq`), no block bound inside (its positions
+    are the whole sequence's), and its output, which the row-parallel
+    product has summed over ``model``, cut back to the block
+    (:func:`leave_seq`). Otherwise ``fn`` as it is."""
+    tp = model_axis()
+    block = _ctx.block
+    if tp is not None and width % tp.size == 0:
+        if not _model_cut(block):
+            return fn(p, x, *whole, **kw)
+        with cut_sequence(None):
+            out = fn(p, enter_seq(x, block), *whole, **kw)
+        if isinstance(out, tuple):
+            return (leave_seq(out[0], block),) + tuple(out[1:])
+        return leave_seq(out, block)
+    with runs_whole(width):
+        if _model_cut(block):
+            p = {k: block_leaf(v) for k, v in p.items()}
+            whole = tuple(block_leaf(t) for t in whole)
+        return fn(p, x, *whole, **kw)
+
+
+def replicated_rows(batch: int) -> Optional[SeqAxis]:
+    """Where the reference's MoE replicates its tokens over the batch
+    axes (its ``shard_map`` cuts them over the axes that are not manual
+    only where their product divides the global batch) but this rank
+    holds a slice of ``batch`` rows of the global batch (bound by
+    ``launch.steps.rank_slice``): the axes that slice was cut on, whose
+    ranks' rows the MoE gathers. ``None`` elsewhere."""
+    mesh, B = _ctx.mesh, _ctx.batch
+    if mesh is None or B is None or B == batch:
+        return None
+    shape = mesh_shape(mesh)
+    dp = 1
+    for a in mesh_lib.batch_axes(mesh):
+        if a not in manual_axes():
+            dp *= shape[a]
+    axes = batch_axes_of(B)
+    if dp <= 1 or B % dp == 0 or not axes:
+        return None
+    return _seq_axis(mesh, axes)
+
+
+def gather_rows(x: torch.Tensor, cut: SeqAxis) -> torch.Tensor:
+    """Every rank's rows (dim 0) of ``x`` over ``cut``'s group, in order
+    (one counted all-gather); differentiable, its backward one
+    all-reduce over the group and this rank's rows."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherSeq.apply(x, cut, 0)
+    return mesh_lib.all_gather(x, cut.group, 0)
 
 
 class _GatherSeq(torch.autograd.Function):
@@ -584,11 +744,13 @@ class _SumOverSeq(torch.autograd.Function):
     """The sums of ``total`` and ``count`` over the group (one all-reduce);
     the backward is the all-reduce's adjoint for a cotangent that every
     rank holds alike (the loss is the same on every rank): ``n`` times it,
-    with no collective; ``count`` takes none."""
+    with no collective, where the group is a batch axis that the step
+    averages over; the cotangent itself over ``model``, where each rank's
+    gradient is the whole loss's; ``count`` takes none."""
 
     @staticmethod
     def forward(ctx, total, count, cut):
-        ctx.n = cut.size
+        ctx.n = 1 if "model" in cut.axes else cut.size
         both = torch.stack([total.float(), count.float()])
         mesh_lib.all_reduce(both, cut.group)
         return both[0].to(total.dtype), both[1].to(count.dtype)
@@ -602,10 +764,12 @@ def sum_over_seq(total: torch.Tensor, count: torch.Tensor, block: SeqBlock
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(``total``, ``count``) summed over the sequence's axis: a loss's
     masked sum and its count of valid positions, so that their ratio is
-    the whole sequence's mean on every rank. The step averages the
-    ranks' gradients over ``data``, and each rank's is its blocks' share
+    the whole sequence's mean on every rank. Over ``data`` the step
+    averages the ranks' gradients, and each rank's is its blocks' share
     of ``n`` times the whole loss's: their mean is the whole loss's
-    gradient."""
+    gradient. Over ``model`` each rank's is its block's share, and the
+    collectives of the layers and :func:`block_leaf` make every leaf's
+    the whole loss's."""
     return _SumOverSeq.apply(total, count.detach(), block.axis)
 
 

@@ -22,18 +22,31 @@ ZeRO-1 slice (``optim.adamw.Zero1``, the step's ``zero`` attribute: build
 the state with ``init_opt_state(cfg, params, step.zero)``).
 
 A bound ``seq`` rule (``launch.sharding.axis_rules(mesh, {"seq":
-"data"})``, around the steps) is context parallelism. Each rank is
-handed the batch its resolved spec gives it (:func:`_rank_batch`): at a
-batch that ``pod x data`` does not divide, the whole batch, as the
-reference replicates it. A prefill or train step then cuts the sequence
-into a block a rank (``models.transformer.forward``): the prefill returns
-the last position's logits on every rank and the rank's blocks of the
-attention caches, which the decode step runs on, and the train step's
-loss is the whole sequence's on every rank, each rank's gradient its
-blocks' share of ``n`` times it, so that the average over ``pod x data``
-is the whole loss's gradient. Under ``seq -> model`` a prefill or train
-step raises ``ValueError`` wherever the reference's spec maps ``model``
-twice (``launch.sharding.activation_axes``).
+"data"})`` or ``{"seq": "model"}``, around the steps) is context
+parallelism. The prefill and train steps are handed the global batch
+and take the rank's slice of it by its resolved spec
+(:func:`rank_slice`): at a batch that ``pod x data`` does not divide,
+the whole batch, or its ``pod``'s rows where ``pod`` divides it, as the
+reference's resolution drops the trailing axes; the global batch's size
+stays bound while the rank runs its slice, and the cut and a MoE's
+tokens are resolved on it. A prefill or train step then cuts
+the sequence into a block a rank (``models.transformer.forward``): the
+prefill returns the last position's logits on every rank and the rank's
+blocks of the attention caches, which the decode step runs on, and the
+train step's loss is the whole sequence's on every rank. Over ``data``
+each rank's gradient is its blocks' share of ``n`` times it, so that
+the average over ``pod x data`` is the whole batch's gradient. Over
+``model``, which is no batch axis, each rank's gradient is the whole
+loss's, leaf by leaf: a layer whose width the axis cuts runs its shard
+on the gathered sequence, whose gradient the tensor-parallel
+collectives sum, and a leaf that every rank keeps whole but applies to
+its block (a norm, the embedding and head at a vocabulary that falls
+back, a layer that runs whole) is summed over ``model`` where it enters
+(``launch.sharding.block_leaf``); the step's mean over ``pod x data``
+is then the data-parallel one. A prefill or train step raises
+``ValueError`` wherever the reference's spec maps one axis twice
+(``launch.sharding.activation_axes``): ``seq -> model`` beside a
+vocabulary the axis divides, ``seq -> data`` beside a batch it cuts.
 
 A ``model`` axis larger than 1 is tensor parallelism: the model must be
 built on the same mesh (``build_model(cfg, mesh=)``: it holds this rank's
@@ -138,6 +151,20 @@ def _rank_batch(batch: Dict[str, torch.Tensor], mesh):
     return _local(batch, n, idx)
 
 
+@contextlib.contextmanager
+def rank_slice(batch: Dict[str, torch.Tensor], mesh):
+    """This rank's slice of the global ``batch`` (:func:`batch_cut`; the
+    batch itself without ``mesh``), with the global batch's size bound
+    while it is entered: the activations' sequence cut and a MoE's
+    tokens are resolved on the global batch, as the reference resolves
+    them (``launch.sharding.activation_axes``, ``replicated_rows``)."""
+    if mesh is None:
+        yield batch
+        return
+    with shd._global_batch(_batch_size(batch)):
+        yield _rank_batch(batch, mesh)
+
+
 def _grads(model: Model, params: Dict[str, torch.Tensor], batch, backend):
     """(every parameter's gradient of the batch's loss, the loss's metrics
     detached); a parameter the loss does not reach has a zero gradient,
@@ -184,15 +211,17 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig,
         zero = zero1_layout(opt_cfg, params, model.cfg, mesh)
         shards = model_shards(model.spec, mesh)
 
-    def reduce(tree):
+    def reduce(tree, in_place=False):
         if mesh is None:
             return tree
-        return hierarchical_grad_reduce(tree, mesh=mesh, compress="none")
+        return hierarchical_grad_reduce(tree, mesh=mesh, compress="none",
+                                        in_place=in_place)
 
     def grads_of(batch):
-        grads, metrics = _grads(model, params, _rank_batch(batch, mesh),
-                                backend)
-        return reduce(grads), metrics
+        with rank_slice(batch, mesh) as local:
+            grads, metrics = _grads(model, params, local, backend)
+        # the gradients are the step's own: their mean is taken in place
+        return reduce(grads, in_place=True), metrics
 
     def train_step(opt_state, batch):
         grads, metrics = grads_of(batch)
@@ -228,8 +257,16 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig,
                           "aux_loss": aux_sum / kt})
         return opt_state, dict(metrics, **opt_metrics)
 
+    def grads(batch):
+        """The plain step's gradient half: (every leaf's gradient of the
+        global ``batch``, reduced as the step reduces it, and the loss's
+        metrics, averaged as the step averages them); no update."""
+        g, metrics = grads_of(batch)
+        return g, reduce(metrics)
+
     step = train_step if microbatches <= 1 else accum_step
     step.zero = zero
+    step.grads = grads
     return step
 
 
@@ -246,19 +283,30 @@ def require_model_on(model: Model, mesh) -> None:
 
 def make_prefill_step(model: Model, max_len: int, backend: str = "cuda",
                       mesh=None):
-    """The prefill; under ``mesh`` (the model's) the last position's
-    logits are gathered whole over ``model``."""
+    """The prefill of the global ``batch``: under ``mesh`` (the model's)
+    each rank prefills its slice of it (:func:`rank_slice`) and returns
+    its rows of the last position's logits, gathered whole over
+    ``model``, and its cache. ``memory``, an encoder-decoder's, is the
+    encoder's output for the rank's rows (``Model.encode`` of its slice of
+    the frames), as the decode step takes it; without it the batch's
+    ``enc_embeds`` are encoded."""
     require_model_on(model, mesh)
 
-    def prefill_step(batch):
-        logits, cache = model.prefill(batch, max_len=max_len, backend=backend)
-        return logits, cache
+    def prefill_step(batch, memory=None):
+        with rank_slice(batch, mesh) as local:
+            if memory is not None:
+                local = dict(local, memory=memory)
+            return model.prefill(local, max_len=max_len, backend=backend)
     return prefill_step
 
 
 def make_decode_step(model: Model, backend: str = "cuda", mesh=None):
-    """One decode step; under ``mesh`` (the model's) its logits are
-    gathered whole over ``model``."""
+    """One decode step of the rank's rows, on the cache and ``memory``
+    the prefill step gave it; under ``mesh`` (the model's) its logits are
+    gathered whole over ``model``. A MoE routes the rows it is given:
+    routing is per token and dropless, so the tokens are those the
+    reference's step makes from the whole batch (whose aux loss serving
+    leaves unused)."""
     require_model_on(model, mesh)
 
     def decode_step(token, pos, kv_len, cache, memory=None):
@@ -331,12 +379,11 @@ def lower_prefill_step(model: Model, mesh, shape: ShapeConfig
     a bound ``seq`` rule, context parallel (the module's docstring)."""
     _on_meta(model, mesh, False)
     specs = input_specs(model.cfg, shape)
-    local = _rank_batch(specs, mesh)
     step = make_prefill_step(model, max_len=_serve_len(model, shape),
                              backend="torch", mesh=mesh)
-    return trace_step(lambda: step(local), model.params.parameters(),
+    return trace_step(lambda: step(specs), model.params.parameters(),
                       kept=specs.values(),
-                      kept_bytes=_nbytes(local.values()))
+                      kept_bytes=_nbytes(_rank_batch(specs, mesh).values()))
 
 
 @torch.no_grad()

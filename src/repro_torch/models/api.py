@@ -28,12 +28,15 @@ to draw real ones.
 binds it (``launch.sharding.axis_rules``) for its call, under the
 default rules unless the caller has bound it with its own (a ``seq``
 rule for context parallelism: under ``seq -> data`` at a batch that
-does not divide, :meth:`Model.prefill`, :meth:`Model.loss` and
-:meth:`Model.encode` run each rank's block of the sequence, the prefill
-returning the rank's blocks of the cache, which
-:meth:`Model.decode_step` takes as they are; a cache a prefill made
-under the default rules is cut with :meth:`Model.cut_cache`). On a mesh whose
-``model`` axis is larger than 1 the model holds only this rank's shard
+``pod x data`` does not divide, whole or cut over ``pod``, and under
+``seq -> model`` where the vocabulary falls back, and in the encoder,
+:meth:`Model.prefill`, :meth:`Model.loss` and :meth:`Model.encode` run
+each rank's block of the sequence, the prefill returning the rank's
+blocks of the cache, which :meth:`Model.decode_step` takes as they are;
+a cache a prefill made under the default rules is cut with
+:meth:`Model.cut_cache`; a rank's slice of a global batch is taken by
+``launch.steps.rank_slice``, which binds the global size). On a mesh
+whose ``model`` axis is larger than 1 the model holds only this rank's shard
 of each parameter, as :attr:`Model.spec` gives it
 (``transformer.tp_param_spec``), and runs tensor parallel (every layer
 kind has a tensor-parallel path); a leaf whose width the axis does not

@@ -74,12 +74,17 @@ rank's blocks and gather them back.
 Where the rule cuts a train or prefill pass's sequence
 (``launch.sharding.seq_block``: context-parallel prefill and training)
 each rank computes q, k and v (MLA: q and the latent ``c`` / ``kr``) of
-its block, with RoPE at the block's global positions; k and v (MLA's
+its block, with RoPE at the block's global positions (the layers take
+the whole sequence's positions and read their block's); k and v (MLA's
 latent) are gathered over the axis in one all-gather, and K4 runs the
 block's queries at ``q_offset`` = the block's first position over the
 whole keys, causal and windowed as configured (not causal in the
-encoder). A prefill writes each rank's block of the cache from the
-gathered keys (:func:`_fill`: the ring's wrap included), what
+encoder). Over ``model``, a mixer whose heads the axis divides instead
+runs its heads on the gathered sequence (``launch.sharding.tp_layer``:
+sequence parallelism), K4 at ``q_offset`` 0. A prefill writes each
+rank's block of the cache from the whole sequence's keys (:func:`_fill`:
+the ring's wrap included; under ``model`` every KV head, gathered over
+``model`` where the rank computed only its group's), what
 :func:`cut_seq_cache` gives from one process's prefill. Cross attention
 reads the whole memory, gathered once a forward.
 """
@@ -443,11 +448,12 @@ def _ring_write(cache_kv: torch.Tensor, new: torch.Tensor,
 
 def gqa_apply(p: nn.ParameterDict, x: torch.Tensor, *, cfg: ModelConfig,
               **kw) -> Tuple[torch.Tensor, Cache]:
-    """GQA attention (:func:`_gqa_apply`, whose keywords it takes), run
-    whole on every rank where the ``model`` axis does not divide the
-    query heads (:func:`heads_sharded`)."""
-    with shd.runs_whole(cfg.padded_heads()):
-        return _gqa_apply(p, x, cfg=cfg, **kw)
+    """GQA attention (:func:`_gqa_apply`, whose keywords it takes) as
+    ``launch.sharding.tp_layer`` runs a layer of the query heads: whole on
+    every rank where the ``model`` axis does not divide them
+    (:func:`heads_sharded`), on the gathered sequence where it divides
+    them and cuts the sequence."""
+    return shd.tp_layer(cfg.padded_heads(), _gqa_apply, p, x, cfg=cfg, **kw)
 
 
 def _gqa_apply(
@@ -474,7 +480,11 @@ def _gqa_apply(
     ``copy_to_model``, so that its gradient, of which each rank computes
     its own query heads' part, is summed over ``model``. Where they
     straddle KV groups (:func:`kv_read`) every KV head is computed and
-    cached, and K4 and the decode read the rank's."""
+    cached, and K4 and the decode read the rank's. ``positions`` (and
+    ``mrope_positions``) are the whole sequence's; on a block, the
+    block's are read."""
+    positions = shd.block_rows(positions)
+    mrope_positions = shd.block_rows(mrope_positions, 2)
     B, S, D = x.shape
     tp = shd.model_axis()
     H, KV, kv0 = local_heads(cfg, tp)
@@ -619,10 +629,11 @@ def cross_init(gen: torch.Generator, cfg: ModelConfig, *, device=None
 
 def cross_apply(p: nn.ParameterDict, x: torch.Tensor, memory: torch.Tensor,
                 *, cfg: ModelConfig, backend: str = "cuda") -> torch.Tensor:
-    """Cross attention (:func:`_cross_apply`), run whole on every rank
-    where the ``model`` axis does not divide the query heads."""
-    with shd.runs_whole(cfg.padded_heads()):
-        return _cross_apply(p, x, memory, cfg=cfg, backend=backend)
+    """Cross attention (:func:`_cross_apply`) as
+    ``launch.sharding.tp_layer`` runs a layer of the query heads (the
+    memory, whole on every rank, entered as a leaf is)."""
+    return shd.tp_layer(cfg.padded_heads(), _cross_apply, p, x, memory,
+                        cfg=cfg, backend=backend)
 
 
 def _cross_apply(
@@ -766,10 +777,9 @@ def _write_at(cache_t: torch.Tensor, new: torch.Tensor,
 
 def mla_apply(p: nn.ParameterDict, x: torch.Tensor, *, cfg: ModelConfig,
               **kw) -> Tuple[torch.Tensor, Cache]:
-    """MLA (:func:`_mla_apply`, whose keywords it takes), run whole on
-    every rank where the ``model`` axis does not divide the heads."""
-    with shd.runs_whole(cfg.padded_heads()):
-        return _mla_apply(p, x, cfg=cfg, **kw)
+    """MLA (:func:`_mla_apply`, whose keywords it takes) as
+    ``launch.sharding.tp_layer`` runs a layer of the heads."""
+    return shd.tp_layer(cfg.padded_heads(), _mla_apply, p, x, cfg=cfg, **kw)
 
 
 def _mla_apply(
@@ -794,7 +804,9 @@ def _mla_apply(
     scores against the cached latent plus the rope part, the ``kv_len``
     mask, softmax, the latent output through W_uv, then the cast back.
     Every step runs at this rank's heads (``shd.local_size``), ``wo``
-    row-parallel; the latent cache is whole on every rank."""
+    row-parallel; the latent cache is whole on every rank. ``positions``
+    are the whole sequence's; on a block, the block's are read."""
+    positions = shd.block_rows(positions)
     m = cfg.mla
     B, S, D = x.shape
     H = shd.local_size(cfg.padded_heads())

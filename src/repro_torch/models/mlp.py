@@ -13,7 +13,10 @@ runs every expert's F-shard), the output summed over ``model`` in its
 dtype (the reference's ``psum``), the shared expert F-sharded like a
 dense MLP. A dense MLP whose width the axis does not divide runs whole
 on every rank, with no collective, as the reference's divisibility
-fallback replicates its leaves (``launch.sharding.runs_whole``). The
+fallback replicates its leaves (``launch.sharding.tp_layer``); on a
+sequence cut over ``model`` one the axis cuts runs on the gathered
+sequence and leaves through a reduce-scatter, and one that runs whole
+runs on the rank's block. The
 expert stacks have no such fallback: the reference's ``shard_map`` in-specs
 cut them on ``model`` whatever their width, and refuse one the axis does
 not divide (``ValueError``), as ``transformer.require_supported`` does.
@@ -86,9 +89,8 @@ def mlp_apply(p: nn.ParameterDict, x: torch.Tensor, *, cfg: ModelConfig,
               d_ff: Optional[int] = None) -> torch.Tensor:
     """The MLP of width ``d_ff`` (:func:`dense_width` by default): column-
     then row-parallel under a model axis that divides the width, whole on
-    every rank otherwise (``launch.sharding.runs_whole``)."""
-    with shd.runs_whole(d_ff or dense_width(cfg)):
-        return _mlp_apply(p, x, cfg=cfg)
+    every rank otherwise (``launch.sharding.tp_layer``)."""
+    return shd.tp_layer(d_ff or dense_width(cfg), _mlp_apply, p, x, cfg=cfg)
 
 
 def _mlp_apply(p: nn.ParameterDict, x: torch.Tensor, *, cfg: ModelConfig
@@ -242,24 +244,41 @@ def moe_apply(p, x: torch.Tensor, *, cfg: ModelConfig, mean_aux: bool = True
     averaged over the batch axes that are not manual (``mean_over_batch``;
     its backward is the identity, since the step averages the gradients
     over them). Serving passes ``mean_aux=False``: the reference's compiler
-    drops that unused collective.
+    drops that unused collective. On a sequence cut over ``model`` it runs
+    as ``launch.sharding.tp_layer`` runs a layer the axis cuts: on the
+    gathered sequence, the sum over ``model`` cut back to the block (a
+    reduce-scatter: each rank's partial covers every row).
 
-    Where a ``seq`` rule cuts the sequence (``launch.sharding.seq_block``,
-    whose batch falls back whole) the tokens are replicated, as the
-    reference's ``shard_map`` replicates a batch that does not divide:
-    the block's tokens are gathered over the axis, every rank routes and
-    computes the whole sequence and keeps its block's rows, and the aux
-    loss is the whole sequence's, with no mean (the reference's
-    ``pmean`` is over the batch axes that cut the batch: none)."""
+    Where the reference's ``shard_map`` replicates the tokens (a global
+    batch that the batch axes do not divide) and this rank holds a part
+    of them, the tokens are gathered, as the reference's in-spec gathers
+    them: a block of a sequence cut over ``data``
+    (``launch.sharding.seq_block``) over the axis, and rows of a batch
+    cut over ``pod`` (``launch.sharding.replicated_rows``) over theirs.
+    Every rank then routes and computes every token and keeps its own
+    rows, and the aux loss is the whole batch's, with no mean (the
+    reference's ``pmean`` is over the batch axes that cut its tokens:
+    none)."""
+    return shd.tp_layer(cfg.moe.d_ff_expert, _moe_apply, p, x, cfg=cfg,
+                        mean_aux=mean_aux)
+
+
+def _moe_apply(p, x: torch.Tensor, *, cfg: ModelConfig, mean_aux: bool
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     mo = cfg.moe
     block = shd.seq_block()
+    rows = shd.replicated_rows(x.shape[0])
     xs = x if block is None else shd.gather_seq(x, block)
+    if rows is not None:
+        xs = shd.gather_rows(xs, rows)
     out, aux = _moe_local(p, xs.reshape(-1, x.shape[-1]), mo, cfg.act)
     out = out.reshape(xs.shape)
+    if rows is not None:
+        out = out.narrow(0, rows.index * x.shape[0], x.shape[0])
     if block is not None:
         out = out[:, block.start:block.start + block.length]
     out = shd.reduce_from_model(out)
-    if mean_aux and block is None:
+    if mean_aux and block is None and rows is None:
         aux = shd.mean_over_batch(aux)
     if mo.num_shared_experts > 0:
         out = out + mlp_apply(p["shared"], x, cfg=cfg,

@@ -43,7 +43,11 @@ first ``d_conv - 1`` inputs (Mamba) are the previous block's last rows
 (``launch.sharding.halo``; zeros before the first block, as a prefill's
 fresh cache holds), and K6 and K7 start from the state with which the
 previous block ended (``launch.sharding.relay_scan``: one all-gather a
-round, the gradient relayed back in reverse). A prefill writes the whole
+round, the gradient relayed back in reverse). Over ``model``, a mixer
+(or the channel mix) whose heads (channels, ``d_ff``) the axis divides
+instead runs its shard on the gathered sequence
+(``launch.sharding.tp_layer``), K6 and K7 over the whole sequence at the
+rank's heads or channels, with no relay. A prefill writes the whole
 sequence's final states into every rank's cache: the last block's.
 """
 from __future__ import annotations
@@ -146,11 +150,10 @@ def _group_norm(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 def rwkv_tmix_apply(p: nn.ParameterDict, x: torch.Tensor, *,
                     cfg: ModelConfig, **kw) -> Tuple[torch.Tensor, Cache]:
-    """The time mix (:func:`_rwkv_tmix_apply`, whose keywords it takes),
-    run whole on every rank where the ``model`` axis does not divide the
-    heads."""
-    with shd.runs_whole(cfg.num_heads):
-        return _rwkv_tmix_apply(p, x, cfg=cfg, **kw)
+    """The time mix (:func:`_rwkv_tmix_apply`, whose keywords it takes)
+    as ``launch.sharding.tp_layer`` runs a layer of the heads."""
+    return shd.tp_layer(cfg.num_heads, _rwkv_tmix_apply, p, x, cfg=cfg,
+                        **kw)
 
 
 def _rwkv_tmix_apply(
@@ -249,9 +252,9 @@ def rwkv_cmix_apply(
     row-parallel on ``d_ff``, ``wr`` whole on every rank; where the axis
     does not divide ``d_ff`` the channel mix runs whole on every rank, with
     no collective (``launch.sharding.runs_whole``), as the reference's
-    fallback replicates ``wk``."""
-    with shd.runs_whole(cfg.d_ff):
-        return _rwkv_cmix_apply(p, x, cfg=cfg, mode=mode, cache=cache)
+    fallback replicates ``wk`` (``launch.sharding.tp_layer``)."""
+    return shd.tp_layer(cfg.d_ff, _rwkv_cmix_apply, p, x, cfg=cfg,
+                        mode=mode, cache=cache)
 
 
 def _rwkv_cmix_apply(p: nn.ParameterDict, x: torch.Tensor, *,
@@ -336,11 +339,10 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def mamba_apply(p: nn.ParameterDict, x: torch.Tensor, *, cfg: ModelConfig,
                 **kw) -> Tuple[torch.Tensor, Cache]:
-    """Mamba (:func:`_mamba_apply`, whose keywords it takes), run whole on
-    every rank where the ``model`` axis does not divide the inner
-    channels."""
-    with shd.runs_whole(cfg.ssm.expand * cfg.d_model):
-        return _mamba_apply(p, x, cfg=cfg, **kw)
+    """Mamba (:func:`_mamba_apply`, whose keywords it takes) as
+    ``launch.sharding.tp_layer`` runs a layer of the inner channels."""
+    return shd.tp_layer(cfg.ssm.expand * cfg.d_model, _mamba_apply, p, x,
+                        cfg=cfg, **kw)
 
 
 def _mamba_apply(

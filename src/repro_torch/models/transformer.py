@@ -45,12 +45,16 @@ built (:func:`check_supported`).
 
 Context parallelism: under a ``seq`` rule that cuts a train or prefill
 pass's sequence (``launch.sharding.activation_cut``: ``seq -> data`` at
-a batch that ``pod x data`` does not divide) each rank runs its block of
-the positions through the whole model (:func:`forward`, :func:`encode`),
-the layers reaching the rest of the sequence through the axis's
-collectives; the prefill returns the last rank's last logits on every
-rank and the rank's blocks of the cache, and the losses are the whole
-sequence's means on every rank (:func:`loss_fn`).
+a batch that ``pod x data`` does not divide, whole or cut over ``pod``;
+``seq -> model`` where the vocabulary falls back, and in the encoder)
+each rank runs its block of the positions through the whole model
+(:func:`forward`, :func:`encode`): the embedding, the norms and the head
+on the block, each layer as ``launch.sharding.tp_layer`` runs it (on
+the block, reaching the rest of the sequence through the axis's
+collectives, or, over ``model`` where the axis cuts its width, its
+shard on the gathered sequence); the prefill returns the last rank's
+last logits on every rank and the rank's blocks of the cache, and the
+losses are the whole sequence's means on every rank (:func:`loss_fn`).
 
 Modes:
   * ``train``   -- full causal pass, logits, no cache; with grad enabled,
@@ -248,21 +252,25 @@ def _norm(p: nn.ParameterDict, x: torch.Tensor, eps: float, *,
     Under ``REPRO_NORM_BF16`` (set by the dry run's ``nf32`` variant) the
     statistics are taken in the activation dtype, as plain torch ops on
     every backend: the reference's probe of a norm that does not promote
-    the preceding row-parallel sum to float32 (its numbers differ)."""
+    the preceding row-parallel sum to float32 (its numbers differ). On a
+    block of a sequence cut over ``model`` the scale and bias enter
+    through ``launch.sharding.block_leaf``."""
+    scale = shd.block_leaf(p["scale"])
+    bias = shd.block_leaf(p["bias"]) if "bias" in p else None
     if os.environ.get("REPRO_NORM_BF16"):
-        mu = x.mean(-1, keepdim=True) if "bias" in p else 0.0
+        mu = x.mean(-1, keepdim=True) if bias is not None else 0.0
         var = (x - mu).square().mean(-1, keepdim=True)
         y = (x - mu) * torch.rsqrt(var + torch.full((), eps, dtype=x.dtype,
                                                     device=x.device))
-        y = y * p["scale"]
-        return y + p["bias"] if "bias" in p else y
-    if "bias" in p:
+        y = y * scale
+        return y + bias if bias is not None else y
+    if bias is not None:
         xf = x.float()
         mu = xf.mean(-1, keepdim=True)
         var = (xf - mu).square().mean(-1, keepdim=True)
         y = (xf - mu) * torch.rsqrt(var + eps)
-        return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
-    return ops.rmsnorm(x, p["scale"], eps, backend=backend)
+        return (y * scale.float() + bias.float()).to(x.dtype)
+    return ops.rmsnorm(x, scale, eps, backend=backend)
 
 
 def _uses_ln_bias(cfg: ModelConfig) -> bool:
@@ -584,12 +592,14 @@ def _lookup(p: Params, cfg: ModelConfig, tokens: torch.Tensor
     bfloat16 row after every addition. Vocab-parallel under a model axis
     that divides the padded vocabulary (:func:`_whole_vocab`): this rank's
     rows, zero where the token is not in its range, summed over ``model``
-    (one row is non-zero: exact)."""
+    (one row is non-zero: exact). Whole on a block of a sequence cut over
+    ``model`` (``launch.sharding.block_leaf``)."""
     dt = getattr(torch, cfg.dtype)
     with _whole_vocab(cfg):
         tp = shd.model_axis()
         if tp is None:
-            return torch.nn.functional.embedding(tokens, p.embed).to(dt)
+            return torch.nn.functional.embedding(
+                tokens, shd.block_leaf(p.embed)).to(dt)
         rows = p.embed.shape[0]
         local = tokens - tp.index * rows
         hit = (local >= 0) & (local < rows)
@@ -604,8 +614,8 @@ def _embed(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     dt = getattr(torch, cfg.dtype)
     x = _lookup(p, cfg, tokens)
     if p.pos_embed is not None:
-        x = x + p.pos_embed[positions.to(device=x.device,
-                                         dtype=torch.long)].to(dt)
+        x = x + shd.block_leaf(p.pos_embed)[positions.to(
+            device=x.device, dtype=torch.long)].to(dt)
     if p.ln0 is not None:
         x = _norm(p.ln0, x, cfg.norm_eps, backend=backend)
     return x
@@ -726,8 +736,10 @@ class Output:
 def _head(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """The logits; under a model axis that cuts the vocabulary
     (:func:`_whole_vocab`) this rank's vocabulary columns (a tied head is
-    its ``embed`` rows, transposed), else every column."""
-    head = p.lm_head if p.lm_head is not None else p.embed.T
+    its ``embed`` rows, transposed), else every column (on a block of a
+    sequence cut over ``model``, through ``launch.sharding.block_leaf``)."""
+    head = shd.block_leaf(p.lm_head if p.lm_head is not None else p.embed)
+    head = head if p.lm_head is not None else head.T
     with _whole_vocab(cfg):
         return shd.copy_to_model(x) @ head
 
@@ -737,19 +749,20 @@ def _embed_frames(p: Params, cfg: ModelConfig, enc_embeds: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The encoder's input: frame embeddings (B, S_enc, D) in
     ``cfg.dtype`` + ``pos_embed`` (with ``block``, this rank's block of
-    the frames at their global positions). Returns (x, positions)."""
+    the frames at their global positions). Returns (x, the whole
+    sequence's positions)."""
     if p.enc_blocks is None:
         raise ValueError(f"{cfg.name} has no encoder")
     B, S, _ = enc_embeds.shape
     dt = getattr(torch, cfg.dtype)
+    positions = positions_for(B, S, device=p.embed.device)
+    mine = positions
     if block is not None:
         enc_embeds = enc_embeds[:, block.start:block.start + block.length]
-        S = block.length
-    positions = positions_for(B, S, 0 if block is None else block.start,
-                              device=p.embed.device)
+        mine = positions[:, block.start:block.start + block.length]
     x = enc_embeds.to(device=p.embed.device, dtype=dt)
     if p.pos_embed is not None:
-        x = x + p.pos_embed[positions.long()].to(dt)
+        x = x + shd.block_leaf(p.pos_embed)[mine.long()].to(dt)
     return x, positions
 
 
@@ -760,17 +773,23 @@ def encode(p: Params, cfg: ModelConfig, enc_embeds: torch.Tensor, *,
     Returns the memory (B, S_enc, D) in ``cfg.dtype``. Under a ``seq``
     rule that cuts the frames (``launch.sharding.activation_cut``, the
     reference's ``logical(x, "batch", "seq", "embed")``) each rank runs
-    its block, its attention over the gathered keys and values, and the
-    memory is gathered whole at the end."""
+    its block through the stack as :func:`forward` runs it, and the
+    memory is gathered whole at the end: over ``data`` by ``gather_seq``,
+    over ``model`` by ``enter_seq`` (its gradient arrives whole on every
+    rank: the cross attention sums its own over ``model``)."""
     B, S, _ = enc_embeds.shape
     block = shd.activation_cut(B, S)
-    x, positions = _embed_frames(p, cfg, enc_embeds, block)
     with shd.cut_sequence(block):
+        x, positions = _embed_frames(p, cfg, enc_embeds, block)
         x, _, _ = _run_stack(p, x, cfg=cfg, positions=positions, pos0=0,
                              mode="train", cache=None, kv_len=None,
                              backend=backend, enc=True)
         x = _norm(p.enc_norm, x, cfg.norm_eps, backend=backend)
-    return x if block is None else shd.gather_seq(x, block)
+    if block is None:
+        return x
+    if "model" in block.axis.axes:
+        return shd.enter_seq(x, block)
+    return shd.gather_seq(x, block)
 
 
 def forward(
@@ -798,10 +817,10 @@ def forward(
     the reference's logits constraint) has each rank embed, run the
     stack, norm and project its block of the positions (their global
     positions; the patches that fall in it), and the logits, hidden state
-    and ``Output.block`` are the block's; the layers see the rest of the
-    sequence through the axis's collectives (``models.attention``,
-    ``models.ssm``, ``models.mlp``). ``pos0`` stays the whole sequence's
-    first position."""
+    and ``Output.block`` are the block's; the layers take the whole
+    sequence's positions and run as ``launch.sharding.tp_layer`` runs
+    them (``models.attention``, ``models.ssm``, ``models.mlp``). ``pos0``
+    stays the whole sequence's first position."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     block = None
@@ -820,16 +839,12 @@ def forward(
         memory = batch.get("memory")
         if memory is None:
             memory = encode(p, cfg, batch["enc_embeds"], backend=backend)
-    if block is not None:
-        cut = slice(block.start, block.start + block.length)
-        tokens, positions = tokens[:, cut], positions[:, cut]
-        if mrope is not None:
-            mrope = mrope[:, :, cut]
-    x = _embed(p, cfg, tokens, positions, backend=backend)
-    if cfg.frontend == "vision" and "patch_embeds" in batch:
-        x = scatter_patches(x, batch["patch_embeds"],
-                            batch["patch_positions"], block)
     with shd.cut_sequence(block):
+        x = _embed(p, cfg, shd.block_rows(tokens), shd.block_rows(positions),
+                   backend=backend)
+        if cfg.frontend == "vision" and "patch_embeds" in batch:
+            x = scatter_patches(x, batch["patch_embeds"],
+                                batch["patch_positions"], block)
         x, aux, new_cache = _run_stack(
             p, x, cfg=cfg, positions=positions, pos0=pos0, mode=mode,
             cache=cache, kv_len=batch.get("kv_len"), backend=backend,
@@ -922,24 +937,24 @@ def _mtp_loss(p: Params, cfg: ModelConfig, hidden: torch.Tensor,
     """DeepSeek-V3 MTP (depth 1): predict t+2 from [norm(h_t);
     norm(E(t+1))] through one block of the last layer's kind; ``nxt`` are
     the tokens t+1 (with ``block``, of this rank's block, the block bound
-    around the MTP block)."""
+    throughout), ``positions`` the whole sequence's."""
     m = p.mtp
     eps = cfg.norm_eps
-    e = _lookup(p, cfg, nxt)
-    h = torch.cat([_norm(m.norm_h, hidden, eps, backend=backend),
-                   _norm(m.norm_e, e, eps, backend=backend)], -1)
-    h = h @ m.proj
     with shd.cut_sequence(block):
+        e = _lookup(p, cfg, nxt)
+        h = torch.cat([_norm(m.norm_h, hidden, eps, backend=backend),
+                       _norm(m.norm_e, e, eps, backend=backend)], -1)
+        h = h @ shd.block_leaf(m.proj)
         h, _, _ = block_apply(m.block, h, cfg=cfg,
                               kind=kind_for_layer(cfg, cfg.num_layers - 1),
                               positions=positions, pos0=0, mode="train",
                               cache=None, kv_len=None, backend=backend)
-    h = _norm(m.final_norm, h, eps, backend=backend)
-    if cfg.loss_chunk > 0:
-        return _xent_chunked(p, cfg, h, labels2, valid2, block)
-    logits = _head(p, cfg, h)
-    with _whole_vocab(cfg):
-        return _xent(logits, labels2, valid2, cfg.vocab_size, block)
+        h = _norm(m.final_norm, h, eps, backend=backend)
+        if cfg.loss_chunk > 0:
+            return _xent_chunked(p, cfg, h, labels2, valid2, block)
+        logits = _head(p, cfg, h)
+        with _whole_vocab(cfg):
+            return _xent(logits, labels2, valid2, cfg.vocab_size, block)
 
 
 def loss_fn(p: Params, batch: Dict[str, torch.Tensor], *, cfg: ModelConfig,
@@ -951,10 +966,11 @@ def loss_fn(p: Params, batch: Dict[str, torch.Tensor], *, cfg: ModelConfig,
     lm_loss, aux_loss with an MoE, mtp_loss with MTP, loss).
 
     Where a ``seq`` rule cuts the sequence (:func:`forward`), each rank
-    holds the whole batch, takes the labels, the mask and the MTP's
-    shifted tokens of its block from it (so the next block's first token
-    needs no collective), and the losses are the whole sequence's means
-    on every rank (``launch.sharding.sum_over_seq``); the chunked loss's
+    holds the whole sequence of its rows of the batch (all of them, or
+    its ``pod``'s), takes the labels, the mask and the MTP's shifted
+    tokens of its block from them (so the next block's first token needs
+    no collective), and the losses are the whole sequence's means on
+    every rank (``launch.sharding.sum_over_seq``); the chunked loss's
     chunks are checked on the whole length first, as the reference's
     constraint checks them."""
     toks = batch["tokens"].long()
@@ -979,8 +995,9 @@ def loss_fn(p: Params, batch: Dict[str, torch.Tensor], *, cfg: ModelConfig,
         return t if block is None else \
             t[:, block.start:block.start + block.length]
     if chunked:
-        loss = _xent_chunked(p, cfg, out.logits, mine(labels), mine(valid),
-                             block)
+        with shd.cut_sequence(block):
+            loss = _xent_chunked(p, cfg, out.logits, mine(labels),
+                                 mine(valid), block)
     else:
         with _whole_vocab(cfg):
             loss = _xent(out.logits, mine(labels), mine(valid),
@@ -998,7 +1015,7 @@ def loss_fn(p: Params, batch: Dict[str, torch.Tensor], *, cfg: ModelConfig,
             pos = positions_for(*inputs.shape, device=inputs.device)
         nxt = torch.roll(inputs, -1, 1)                      # token t+1
         lm = _mtp_loss(p, cfg, out.hidden, mine(nxt), mine(labels2),
-                       mine(valid2), mine(pos), backend=backend, block=block)
+                       mine(valid2), pos, backend=backend, block=block)
         metrics["mtp_loss"] = lm
         loss = loss + mtp_weight * lm
     metrics["loss"] = loss

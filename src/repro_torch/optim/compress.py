@@ -133,12 +133,14 @@ def _int8_ring_all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     return (acc / size).reshape(x.shape).to(x.dtype)
 
 
-def mean_over(x: torch.Tensor, group, size: int) -> torch.Tensor:
+def mean_over(x: torch.Tensor, group, size: int, *,
+              in_place: bool = False) -> torch.Tensor:
     """All-reduce sum over ``group``, then a division by its size as a
-    tensor (the reference's ``pmean``)."""
-    x = mesh_lib.all_reduce(x.clone(), group)
-    return x / torch.full((), float(size), dtype=torch.float32,
-                          device=x.device)
+    tensor (the reference's ``pmean``), both on one copy of ``x`` (on
+    ``x`` itself with ``in_place``)."""
+    x = mesh_lib.all_reduce(x if in_place else x.clone(), group)
+    return x.div_(torch.full((), float(size), dtype=torch.float32,
+                             device=x.device))
 
 
 def hierarchical_grad_reduce(
@@ -148,11 +150,14 @@ def hierarchical_grad_reduce(
     fast_axes: Sequence[str] = ("data",),
     slow_axis: Optional[str] = "pod",
     compress: str = "int8",
+    in_place: bool = False,
 ) -> Tree:
     """Reduce gradients: the mean over ``fast_axes`` in full precision,
     then over ``slow_axis`` the int8 ring (``compress="int8"``) or a plain
     mean. A fast axis absent from the mesh is skipped; the slow axis is
-    skipped when absent or of size 1, as in the reference."""
+    skipped when absent or of size 1, as in the reference. With
+    ``in_place`` the plain means are taken on the leaves themselves, which
+    the caller gives up (no copy of a leaf is made)."""
     shape = mesh_lib.mesh_shape(mesh)
     fast = tuple(a for a in fast_axes if a in shape)
     fast_group = mesh_lib.axes_group(mesh, fast) if fast else None
@@ -163,13 +168,14 @@ def hierarchical_grad_reduce(
     slow_group = mesh_lib.axes_group(mesh, (slow,)) if slow else None
 
     def one(g):
+        own = in_place
         if fast:
-            g = mean_over(g, fast_group, fast_size)
+            g, own = mean_over(g, fast_group, fast_size, in_place=own), True
         if slow:
             if compress == "int8":
                 g = _int8_ring_all_reduce(g, slow_group)
             else:
-                g = mean_over(g, slow_group, shape[slow])
+                g = mean_over(g, slow_group, shape[slow], in_place=own)
         return g
 
     return {n: one(g) for n, g in grads.items()}

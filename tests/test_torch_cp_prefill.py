@@ -35,9 +35,10 @@ against one process. Refusals: ``seq -> model`` in a prefill and a train
 step raises ``ValueError`` where the reference raises
 ``DuplicateSpecError`` (the subprocess shows it), as does ``seq -> data``
 at a batch that ``data`` divides; ``encode`` under ``seq -> model``,
-which the reference runs, raises ``NotImplementedError`` naming item
-14.5. A length the axis does not divide stays whole, the fallback
-recorded, bit for bit the run without the rule.
+which the reference runs, runs cut over ``model`` and is held to it
+(``tests/test_torch_sp_prefill.py`` holds that cut throughout). A length
+the axis does not divide stays whole, the fallback recorded, bit for bit
+the run without the rule.
 """
 import json
 import os
@@ -137,34 +138,21 @@ def _cache_leaves(cache, model):
 
 
 class _SeqCounter:
-    """Counts the collectives the port issues over one process group (the
-    sequence's axis), by kind, while entered."""
+    """The collectives the port issues over one process group (the
+    sequence's axis), by kind, while entered
+    (``launch.mesh.collective_counts(group)``)."""
 
     def __init__(self, group):
         self.group, self.counts = group, {}
 
     def __enter__(self):
         from repro_torch.launch import mesh as mesh_lib
-        self.saved = mesh_lib.all_reduce, mesh_lib.all_gather
-        reduce, gather = self.saved
-
-        def all_reduce(x, group, op="sum"):
-            self._add("all_reduce", group)
-            return reduce(x, group, op)
-
-        def all_gather(x, group, dim):
-            self._add("all_gather", group)
-            return gather(x, group, dim)
-        mesh_lib.all_reduce, mesh_lib.all_gather = all_reduce, all_gather
+        mesh_lib.reset_collective_counts()
         return self
-
-    def _add(self, kind, group):
-        if group is self.group:
-            self.counts[kind] = self.counts.get(kind, 0) + 1
 
     def __exit__(self, *exc):
         from repro_torch.launch import mesh as mesh_lib
-        mesh_lib.all_reduce, mesh_lib.all_gather = self.saved
+        self.counts = mesh_lib.collective_counts(self.group)
 
 
 def _run(model, arch, S, mesh=None, group=None):
@@ -322,12 +310,11 @@ def _extras(rank, mesh2x1, mesh1x2, jax_dir):
                 res[what] = f"ValueError: {e}"
     seamless = _model("seamless-m4t-large-v2", jax_dir, mesh1x2)
     with shd.axis_rules(mesh1x2, {"seq": "model"}), torch.no_grad():
-        try:
-            seamless.encode(_torch(_batch(seamless.cfg, 32))["enc_embeds"],
-                            backend="torch")
-            res["encode_seq_model"] = ""
-        except NotImplementedError as e:
-            res["encode_seq_model"] = f"NotImplementedError: {e}"
+        frames = _torch(_batch(seamless.cfg, 32))["enc_embeds"]
+        res["encode_seq_model_cut"] = list(shd.activation_axes(
+            *frames.shape[:2]) or ())
+        tensors["encode_seq_model"] = seamless.encode(frames,
+                                                      backend="torch")
     # 21 prompt tokens (and 21 positions in the loss), which 2 does not
     # divide: whole on both ranks, the fallback recorded, bit for bit
     model = _model("jamba-v0.1-52b", jax_dir, mesh2x1)
@@ -526,8 +513,10 @@ def _jax_oracle(out, group):
         def encode():
             with mesh, jshd.axis_rules(mesh, {"seq": "model"}):
                 p = jax.device_put(params, param_shardings(mesh, jm, params))
-                jax.jit(lambda q, e: jtfm.encode(q, jcfg, e))(
+                memory = jax.jit(lambda q, e: jtfm.encode(q, jcfg, e))(
                     p, jbatch(_batch(jcfg, 32))["enc_embeds"])
+            np.save(os.path.join(out, "encode_seq_model.npy"),
+                    np.asarray(memory))
         errors["encode_seq_model"] = error_of(encode)
     pathlib.Path(out, f"errors{group}.json").write_text(json.dumps(errors))
 
@@ -785,12 +774,16 @@ def test_torch_cp_a_mesh_axis_mapped_twice_raises_as_the_reference(runs,
 
 def test_torch_cp_encode_under_seq_model_is_refused_naming_the_item(runs):
     """The encoder alone under ``seq -> model`` has no vocabulary to map
-    twice: the reference runs it cut over ``model``, which the port does
-    not carry out (ROADMAP item 14.5)."""
+    twice: the reference runs it cut over ``model``, and so does the port
+    (sequence parallelism: its 4 heads over ``model 2``), its memory on
+    every rank within 1e-5 of the reference's. (Until the cut ran, the
+    port refused it; the name is kept.)"""
     assert runs["errors"]["encode_seq_model"] == ""
-    for res in runs["res"][2]:
-        got = res["extras"]["encode_seq_model"]
-        assert got.startswith("NotImplementedError") and "14.5" in got, got
+    want = np.load(runs["jax"] / "encode_seq_model.npy")
+    for r, res in enumerate(runs["res"][2]):
+        assert res["extras"]["encode_seq_model_cut"] == ["model"]
+        got = _load(runs["ranks"] / f"extras_{r}.npz")["encode_seq_model"]
+        _near(got, want, 1e-5, ("encode_seq_model", r))
 
 
 def test_torch_cp_a_length_the_axis_does_not_divide_stays_whole(runs):

@@ -319,8 +319,9 @@ def test_torch_decode_takes_the_seq_rules_and_prefill_and_train_refuse_them():
     sequence both map to ``data``, the spec's ``ValueError``; under
     ``seq -> model`` the sequence and the vocabulary both map to
     ``model``: ``ValueError`` (the reference's ``DuplicateSpecError``),
-    and only where the vocabulary (or, for the encoder, the logits) is
-    not there to map it twice is the cut refused, naming item 14.5."""
+    the only refusal left; where the vocabulary falls back (``V + 8``)
+    or there is none (the encoder) the sequence is cut over ``model``,
+    as the reference cuts it."""
     from repro_torch.launch.dryrun import apply_variant, cell_rules
     assert cell_rules("long_500k") == {"seq": "data"}
     assert cell_rules("train_4k") is None
@@ -343,9 +344,8 @@ def test_torch_decode_takes_the_seq_rules_and_prefill_and_train_refuse_them():
                     with pytest.raises(ValueError, match="'model'"):
                         shd.activation_axes(B, S, V)
                     for vocab in (V + 8, None):
-                        with pytest.raises(NotImplementedError,
-                                           match="item 14.5"):
-                            shd.activation_axes(B, S, vocab)
+                        assert shd.activation_axes(B, S, vocab) == \
+                            ("model",)
 
 
 if __name__ == "__main__":
